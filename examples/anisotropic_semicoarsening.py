@@ -33,7 +33,7 @@ EPS_X, LEVEL = 100.0, 6
 def run(label, coarsening, smoother):
     cfg = MultigridConfig(finest_level=LEVEL, coarsest_level=3,
                           smoother=smoother, nu1=3, nu2=2,
-                          use_pallas=False, dtype=jnp.float64)
+                          dtype=jnp.float64)
     res = solve_anisotropic(LEVEL, eps_x=EPS_X, eps_y=1.0,
                             coarsening=coarsening, config=cfg,
                             tol=1e-10, max_cycles=40)

@@ -39,7 +39,7 @@ def wind_y(x, y):
 if __name__ == "__main__":
     cfg = MultigridConfig(finest_level=LEVEL, coarsest_level=3,
                           smoother="rbgs", nu1=2, nu2=2,
-                          use_pallas=False, dtype=jnp.float64)
+                          dtype=jnp.float64)
 
     # Recirculating (closed-streamline) winds are the classic hard case
     # for convection-dominated multigrid: the asymptotic factor degrades

@@ -4,8 +4,7 @@
 Solve -lap(u) = 2x on the unit square with insulated (du/dn = 0) top,
 bottom, and right walls and Dirichlet u = 0 on the left.  The Neumann
 sides keep their boundary nodes as unknowns (problems/mixedbc.py: box
-unknown sets + ghost-reflection rows); on TPU the whole solve runs the
-box-masked fused K1v/K2v Pallas kernels.
+unknown sets + ghost-reflection rows).
 
 Manufactured check: u(x, y) = x - x**3/3 solves -u_xx = 2x with
 u(0, y) = 0 and u_x(1, y) = 0, independent of y, so with insulated top
@@ -13,7 +12,7 @@ and bottom it is the exact continuum solution.
 
 The tolerance stays above the f32 residual floor: Neumann problems carry
 an O(1) solution scale, flooring relative reductions near ~1e-3 at this
-level (BENCH.md); deeper tolerances need f64 (CPU) or refined mode.
+level; deeper tolerances need f64 or refined mode.
 """
 
 import jax.numpy as jnp

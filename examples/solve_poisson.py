@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Minimal end-to-end example: solve -lap(u) = 4 on the unit square.
 
-Run on TPU (default) or CPU (set jax_platforms to "cpu").
+Runs on JAX's default device: an NVIDIA GPU (with the fused CUDA level
+visits) or the CPU (set JAX_PLATFORMS=cpu).
 """
 
 import time
@@ -17,15 +18,15 @@ import tpu_multigrid as mg
 
 LEVEL = 10  # 1025 x 1025 — the reference's largest problem
 
-on_tpu = jax.devices()[0].platform != "cpu"
+on_gpu = jax.devices()[0].platform == "gpu"
 cfg = mg.MultigridConfig(
     finest_level=LEVEL, coarsest_level=5,
     nu1=2, nu2=2, smoother="jacobi", omega=2.0 / 3.0,
-    use_pallas=on_tpu)
+    use_kernels=on_gpu)
 
 t0 = time.time()
 # f32 can resolve only ~2 decades of residual reduction at this grid size
-# (FEM scaling: b ~ h^2; see CLAUDE.md) — until-tol stops at the stall.
+# (FEM scaling: b ~ h^2) — until-tol stops at the stall.
 result = mg.solve_poisson(LEVEL, config=cfg, tol=1e-2, max_cycles=40)
 jax.block_until_ready(result.u)
 n = 2 ** LEVEL

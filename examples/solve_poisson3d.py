@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """3D end-to-end example: solve -lap(u) = 6 on the unit cube.
 
-The 7-point hierarchy runs through the same drivers as 2D; on TPU the
-level visits are the fused K1₃/K2₃ super-kernels (kernels/transfer3d.py,
-3.35 ms per 257³ V-cycle on v5e).  Run on TPU (default) or CPU.
+The 7-point hierarchy runs through the same drivers as 2D, on the plain
+XLA path.  Runs on JAX's default device (GPU or CPU).
 """
 
 import time
@@ -16,10 +15,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import tpu_multigrid as mg
 
-LEVEL = 7  # 129^3; level 8/9 also run on a single v5e (6.8 GB at 9)
+LEVEL = 7  # 129^3
 
 t0 = time.time()
-# The f32 residual floor at level l is ~eps * n^2 relative (CLAUDE.md);
+# The f32 residual floor at level l is ~eps * n^2 relative;
 # 3e-4 is comfortably reachable at level 7.
 result = mg.solve_poisson3d(LEVEL, tol=3e-4, max_cycles=30)
 jax.block_until_ready(result.u)

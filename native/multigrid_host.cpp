@@ -18,7 +18,7 @@
 //     six triangles of area h^2/2 contribute f*area/3 per interior node);
 //   * CSR SpMV and residual for host-side verification.
 //
-// The TPU compute path never uses these (it is matrix-free); this is the
+// The device compute path never uses these (it is matrix-free); this is the
 // native runtime's independent oracle and setup layer.
 
 #include <algorithm>

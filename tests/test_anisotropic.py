@@ -206,7 +206,7 @@ class TestRotated:
         for lvl in (5, 6):
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=3,
                                   smoother=smoother, nu1=nu[0], nu2=nu[1],
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             prob = AnisotropicPoissonProblem(cfg, eps_x=1.0, eps_y=0.05,
                                              angle=math.radians(45))
             res = solve_fixed(prob.hierarchy, cfg, prob.rhs(), 10)
@@ -223,7 +223,7 @@ class TestRotated:
 
         cfg = MultigridConfig(finest_level=6, coarsest_level=3,
                               smoother="zebra_x", nu1=1, nu2=1,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         prob = AnisotropicPoissonProblem(cfg, eps_x=1.0, eps_y=0.01,
                                          angle=math.radians(45))
         res = jax.jit(lambda h, b: pcg_solve(
@@ -254,7 +254,7 @@ class TestRotated:
             n = 2 ** lvl
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=3,
                                   smoother="zebra_x", nu1=1, nu2=1,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             prob = AnisotropicPoissonProblem(cfg, eps_x=ex, eps_y=ey,
                                              angle=th, forcing=forcing)
             res = solve_fixed(prob.hierarchy, cfg, prob.rhs(), 14)

@@ -4,9 +4,8 @@ operators through the whole driver stack.
 Verified: the Poisson limit (b = 0) reproduces the 5-point stencil
 exactly; the upwind operator is an M-matrix at any Peclet; multigrid with
 rbgs smoothing converges mesh-independently on re-discretized
-hierarchies; first-order (O(h)) accuracy against a manufactured solution;
-and nonsymmetric operators are kept OFF the symmetric-storage Pallas
-kernels.
+hierarchies; and first-order (O(h)) accuracy against a manufactured
+solution.
 """
 
 import math
@@ -57,31 +56,6 @@ class TestOperator:
         assert c[1, 0, 4, 4] == pytest.approx(-2.0 * h)
         assert c[1, 2, 4, 4] == 0.0
 
-    def test_nonsymmetric_rides_pallas_kernels_when_supported(self):
-        """r4: the is_symmetric bail is gone — nonsymmetric operators at
-        kernel-supported sizes engage K1v/K2v with 9-plane streaming
-        (tests/test_nonsym_kernels.py has the numerical parity); small
-        unpadded sizes still fall back to jnp via the size gates."""
-        from tpu_multigrid.cycles import (_use_var_super_kernels,
-                                          _var_kernel_ok)
-
-        cfg = MultigridConfig(finest_level=5, coarsest_level=3,
-                              use_pallas=True)
-        op = convection_diffusion_op(32, 33, 0.01, 1.0, 0.0)
-        opc = convection_diffusion_op(16, 17, 0.01, 1.0, 0.0)
-        assert not op.is_symmetric
-        # too small / unaligned -> size gates keep it on jnp
-        assert not _var_kernel_ok(op, cfg, jnp.float32, 2)
-        assert not _use_var_super_kernels(op, opc, cfg, jnp.float32)
-        # the 9-plane stack is precomputable for the kernels
-        planes = op.with_sym_planes().coef_sym
-        assert planes is not None and planes.shape[0] == 9
-        # kernel-supported sizes engage
-        big = convection_diffusion_op(250, 256, 0.01, 1.0, 0.0)
-        bigc = convection_diffusion_op(125, 128, 0.01, 1.0, 0.0)
-        assert _var_kernel_ok(big, cfg, jnp.float32, 2)
-        assert _use_var_super_kernels(big, bigc, cfg, jnp.float32)
-
 
 class TestConvergence:
     @pytest.mark.parametrize("eps", [0.01, 0.0025])
@@ -90,7 +64,7 @@ class TestConvergence:
         for lvl in (5, 6):
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=3,
                                   smoother="rbgs", nu1=2, nu2=2,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             prob = ConvectionDiffusionProblem(cfg, eps=eps, bx=1.0, by=0.5)
             res = solve_fixed(prob.hierarchy, cfg, prob.rhs(), 8)
             h = np.asarray(res.res_history)
@@ -101,7 +75,7 @@ class TestConvergence:
         """Recirculating wind b = (y - 1/2, 1/2 - x)."""
         cfg = MultigridConfig(finest_level=5, coarsest_level=3,
                               smoother="rbgs", nu1=2, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         prob = ConvectionDiffusionProblem(
             cfg, eps=0.02,
             bx=lambda x, y: y - 0.5, by=lambda x, y: 0.5 - x)
@@ -112,7 +86,7 @@ class TestConvergence:
     def test_galerkin_option_low_peclet(self):
         cfg = MultigridConfig(finest_level=5, coarsest_level=3,
                               smoother="rbgs", nu1=2, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         prob = ConvectionDiffusionProblem(cfg, eps=1.0, bx=1.0, by=1.0,
                                           hierarchy_method="galerkin")
         res = solve_fixed(prob.hierarchy, cfg, prob.rhs(), 8)
@@ -138,7 +112,7 @@ class TestAccuracy:
             n = 2 ** lvl
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=3,
                                   smoother="rbgs", nu1=2, nu2=2,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             prob = ConvectionDiffusionProblem(cfg, eps=eps, bx=bx, by=by,
                                               forcing=forcing)
             res = solve_fixed(prob.hierarchy, cfg, prob.rhs(), 14)
@@ -158,7 +132,7 @@ class TestAPI:
     def test_solve_convection_diffusion(self):
         cfg = MultigridConfig(finest_level=5, coarsest_level=3,
                               smoother="rbgs", nu1=2, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         r = solve_convection_diffusion(5, eps=0.05, bx=1.0, by=0.0,
                                        tol=1e-10, config=cfg)
         assert bool(r.converged) and int(r.iterations) <= 20
@@ -166,7 +140,7 @@ class TestAPI:
     def test_boundary_lifting(self):
         cfg = MultigridConfig(finest_level=5, coarsest_level=3,
                               smoother="rbgs", nu1=2, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         r = solve_convection_diffusion(5, eps=0.1, bx=1.0, by=0.5,
                                        forcing=0.0, boundary=3.0,
                                        tol=1e-10, config=cfg)

@@ -72,7 +72,7 @@ class TestConvergence:
         for lvl in (4, 5):
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=2,
                                   smoother="rbgs", nu1=2, nu2=2,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             prob = ConvectionDiffusion3DProblem(cfg, eps=eps, bx=1.0,
                                                 by=0.5, bz=0.25)
             res = solve_fixed(prob.hierarchy, cfg, prob.rhs(), 8)
@@ -86,7 +86,7 @@ class TestConvergence:
 
         cfg = MultigridConfig(finest_level=4, coarsest_level=2,
                               smoother="rbgs", nu1=2, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         prob = ConvectionDiffusion3DProblem(cfg, eps=0.005, bx=1.0,
                                             by=0.5, bz=0.25)
         res = jax.jit(lambda h, b: bicgstab_solve(
@@ -113,7 +113,7 @@ class TestAccuracy:
             n = 2 ** lvl
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=2,
                                   smoother="rbgs", nu1=2, nu2=2,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             r = mg.solve_convection_diffusion3d(
                 lvl, eps=eps, bx=bx, by=by, bz=bz, forcing=forcing,
                 config=cfg, num_cycles=14)

@@ -164,7 +164,7 @@ class TestReactionShift3D:
     def test_zero_shift_is_plain_diffusion(self):
         cfg = MultigridConfig(finest_level=3, coarsest_level=2,
                               smoother="chebyshev", nu1=3, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         p = Diffusion3DProblem(cfg, coefficient=1.0, shift=0.0,
                                lane_align=1, align=1, min_pad_level=99)
         assert p.hierarchy.levels[0].c2 is None
@@ -181,7 +181,7 @@ class TestReactionShift3D:
             n = 2 ** lvl
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=2,
                                   smoother="chebyshev", nu1=3, nu2=2,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             f = lambda x, y, z: ((3 * pi ** 2 + c) * jnp.sin(pi * x)
                                  * jnp.sin(pi * y) * jnp.sin(pi * z))
             r = mg.solve_diffusion3d(lvl, coefficient=1.0, shift=c,
@@ -198,7 +198,7 @@ class TestReactionShift3D:
     def test_variable_shift_converges_at_least_like_diffusion(self):
         cfg = MultigridConfig(finest_level=4, coarsest_level=2,
                               smoother="chebyshev", nu1=3, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         from tpu_multigrid.cycles import solve_fixed
         p0 = Diffusion3DProblem(cfg, coefficient=1.0, lane_align=1,
                                 align=1, min_pad_level=99)
@@ -214,7 +214,7 @@ class TestReactionShift3D:
 
     def test_negative_shift_rejected_when_indefinite(self):
         cfg = MultigridConfig(finest_level=3, coarsest_level=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         with pytest.raises(ValueError):
             Diffusion3DProblem(cfg, coefficient=1.0, shift=-1e6,
                                lane_align=1, align=1, min_pad_level=99)
@@ -231,8 +231,7 @@ class TestReactionShift3D:
         from tpu_multigrid.problems.diffusion3d import (
             build_diffusion3d_hierarchy)
 
-        cfg = MultigridConfig(finest_level=3, coarsest_level=2,
-                              use_pallas=False)
+        cfg = MultigridConfig(finest_level=3, coarsest_level=2)
         hier = build_diffusion3d_hierarchy(cfg, 1.0, shift=3.0,
                                            lane_align=1, align=1,
                                            min_pad_level=99)

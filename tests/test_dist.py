@@ -1,5 +1,5 @@
 """Distributed tests on a virtual 8-device CPU mesh (SURVEY.md §4 tier 4):
-shard_map + ppermute halo exchange is exercised without TPU hardware via
+shard_map + ppermute halo exchange is exercised without accelerators via
 xla_force_host_platform_device_count (set in conftest)."""
 
 import jax

@@ -108,8 +108,11 @@ def test_diffusion3d_shift_gspmd_matches_single_chip(use_fmg):
     res = mg.solve_diffusion3d(4, mesh=_mesh22(), **kw)
     ref = mg.solve_diffusion3d(4, **kw)
     _traj_match(res, ref)
-    np.testing.assert_allclose(np.asarray(res.u), np.asarray(ref.u),
-                               rtol=1e-4, atol=1e-7)
+    # the mesh path pads its levels so they shard; compare physical nodes
+    n = 16
+    u = np.asarray(res.u)[: n + 1, : n + 1, : n + 1]
+    ur = np.asarray(ref.u)[: n + 1, : n + 1, : n + 1]
+    np.testing.assert_allclose(u, ur, rtol=1e-4, atol=1e-7)
 
 
 def test_gspmd3_leaves_actually_shard():

@@ -1,8 +1,7 @@
 """Distributed variable-coefficient + sharded-FMG + unified-API tests
 (VERDICT r2 items 3 and 4) on the virtual CPU mesh.
 
-Plain-jnp shard_map is safe at 8 devices on this host (CLAUDE.md); no
-Pallas interpret kernels are launched here.
+Plain-jnp shard_map at 8 virtual devices.
 """
 
 import jax
@@ -191,7 +190,7 @@ def test_api_mesh_routes_to_sharded():
     from tpu_multigrid.api import solve_diffusion, solve_poisson
 
     cfg = MultigridConfig(finest_level=6, coarsest_level=3,
-                          dtype=jnp.float32, use_pallas=False)
+                          dtype=jnp.float32)
     mesh = make_grid_mesh(shape=(2, 2), devices=jax.devices()[:4])
     res = solve_poisson(6, config=cfg, forcing=_forcing, mesh=mesh,
                         num_cycles=4, tol=None)
@@ -216,7 +215,7 @@ def test_api_mesh_matches_single_device_f64():
     """mesh=(1x1) == the sharded reference in f64 to 1e-12 (VERDICT r2
     next-#4 'done' criterion)."""
     cfg = MultigridConfig(finest_level=5, coarsest_level=3,
-                          dtype=jnp.float64, use_pallas=False)
+                          dtype=jnp.float64)
     mesh = make_grid_mesh(shape=(2, 2), devices=jax.devices()[:4])
     mesh1 = make_grid_mesh(shape=(1, 1), devices=jax.devices()[:1])
     res, _ = sharded_solve(cfg, mesh, forcing=_forcing, num_cycles=4,

@@ -2,8 +2,7 @@
 shard_cycle3.build_sharded_diffusion3): completes the distribution
 matrix (2D const/var and 3D const were already distributed).
 
-Plain-jnp shard_map is safe at 8 virtual devices on this host
-(CLAUDE.md); no Pallas interpret kernels are launched here.
+Plain-jnp shard_map at 8 virtual devices.
 """
 
 import jax
@@ -107,8 +106,7 @@ def test_matches_single_chip_problem():
 
     n = 16
     cfg = MultigridConfig(finest_level=4, coarsest_level=2,
-                          smoother="chebyshev", nu1=3, nu2=2,
-                          use_pallas=False)
+                          smoother="chebyshev", nu1=3, nu2=2)
     prob = Diffusion3DProblem(cfg, coefficient=_coef, align=1,
                               min_pad_level=99, lane_align=1)
     res1 = solve_fixed(prob.hierarchy, cfg, prob.rhs(), 12)

@@ -50,8 +50,7 @@ def test_anisotropic_zebra_on_2x2_mesh():
     """solve_anisotropic(mesh=(2,2), smoother=zebra_x) — the gate is
     gone; convergence matches the band-mesh solve."""
     cfg = MultigridConfig(finest_level=6, coarsest_level=3,
-                          dtype=jnp.float32, smoother="zebra_x",
-                          use_pallas=False)
+                          dtype=jnp.float32, smoother="zebra_x")
     mesh22 = make_grid_mesh(shape=(2, 2), devices=jax.devices()[:4])
     res = mg.solve_anisotropic(6, eps_x=1.0, eps_y=0.01,
                                coarsening="full", config=cfg,
@@ -77,8 +76,7 @@ def test_anisotropic_zebra_on_2x2_mesh():
 
 def test_zebra_y_on_2d_mesh_api():
     cfg = MultigridConfig(finest_level=6, coarsest_level=3,
-                          dtype=jnp.float32, smoother="zebra_y",
-                          use_pallas=False)
+                          dtype=jnp.float32, smoother="zebra_y")
     mesh = make_grid_mesh(shape=(2, 2), devices=jax.devices()[:4])
     res = mg.solve_anisotropic(6, eps_x=0.01, eps_y=1.0,
                                coarsening="full", config=cfg, mesh=mesh,

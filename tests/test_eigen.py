@@ -16,7 +16,7 @@ def test_unit_square_ground_state_o_h2():
     for lvl in (5, 6):
         cfg = MultigridConfig(finest_level=lvl, coarsest_level=3,
                               smoother="chebyshev", nu1=3, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         prob = PoissonProblem(cfg)
         lam, v, hist = jax.jit(
             lambda h: smallest_eigenpair(h, cfg))(prob.hierarchy)
@@ -39,7 +39,7 @@ def test_anisotropic_ground_state():
 
     cfg = MultigridConfig(finest_level=5, coarsest_level=3,
                           smoother="chebyshev", nu1=3, nu2=2,
-                          use_pallas=False, dtype=jnp.float64)
+                          dtype=jnp.float64)
     prob = AnisotropicPoissonProblem(cfg, eps_x=4.0, eps_y=1.0)
     lam, _, _ = jax.jit(
         lambda h: smallest_eigenpair(h, cfg))(prob.hierarchy)
@@ -52,7 +52,7 @@ def test_poisson3d_ground_state():
 
     cfg = MultigridConfig(finest_level=4, coarsest_level=2,
                           smoother="chebyshev", nu1=3, nu2=2,
-                          use_pallas=False, dtype=jnp.float64)
+                          dtype=jnp.float64)
     prob = Poisson3DProblem(cfg, align=1, min_pad_level=99, lane_align=1)
     lam, _, _ = jax.jit(
         lambda h: smallest_eigenpair(h, cfg))(prob.hierarchy)

@@ -37,7 +37,7 @@ def test_degenerate_triangle_raises():
 @pytest.mark.parametrize("n", [4, 8, 16])
 def test_element_assembly_matches_stencil(n):
     """Element-by-element assembly == the closed-form 5-point stencil the
-    matrix-free TPU path uses (validates SURVEY §7's 'the stiffness IS the
+    matrix-free device path uses (validates SURVEY §7's 'the stiffness IS the
     stencil' premise)."""
     A, b = fem.assemble_from_elements(n, f=4.0)
     want = oracle.poisson_matrix(n).toarray()

@@ -70,7 +70,7 @@ def test_bicgstab_nonsymmetric_convection():
     on the upwind convection-diffusion operator at high mesh Peclet."""
     cfg = MultigridConfig(finest_level=6, coarsest_level=3,
                           smoother="rbgs", nu1=2, nu2=2,
-                          use_pallas=False, dtype=jnp.float64)
+                          dtype=jnp.float64)
     prob = ConvectionDiffusionProblem(cfg, eps=0.002, bx=1.0, by=0.5)
     b = prob.rhs()
     res = jax.jit(lambda h, bb: bicgstab_solve(

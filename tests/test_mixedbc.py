@@ -220,79 +220,3 @@ class TestSolve:
         assert float(ops.norm2(r) / ops.norm2(b)) < 5e-3
 
 
-class TestPallasKernelPath:
-    """Mixed-BC boxes through the fused Pallas tier (VERDICT r2 weak #4):
-    box-masked K1v/K2v + box-aware standalone transfers must reproduce the
-    jnp path."""
-
-    def test_fused_kernels_engaged_and_match_jnp(self):
-        import dataclasses
-        from jax.experimental.pallas import tpu as pltpu
-        from tpu_multigrid.cycles import (_use_var_super_kernels,
-                                          cycle_with_norm)
-
-        cfg_j = MultigridConfig(finest_level=8, coarsest_level=4,
-                                dtype=jnp.float32, use_pallas=False)
-        cfg_p = dataclasses.replace(cfg_j, use_pallas=True)
-        prob = MixedBCPoissonProblem(cfg_p, neumann=("top", "right"),
-                                     align=256, min_pad_level=0)
-        hier = prob.hierarchy
-        # The finest pair must actually qualify for the box-masked fused
-        # kernels (otherwise this test silently degrades to jnp-vs-jnp).
-        assert _use_var_super_kernels(hier.levels[0], hier.levels[1],
-                                      cfg_p, jnp.dtype(jnp.float32))
-        assert hier.levels[0].box is not None
-        b = prob.rhs()
-        u0 = jnp.zeros_like(b)
-        u_j, n_j = cycle_with_norm(hier, cfg_j, u0, b)
-        with pltpu.force_tpu_interpret_mode():
-            u_p, n_p = cycle_with_norm(hier, cfg_p, u0, b)
-        np.testing.assert_allclose(np.asarray(u_p), np.asarray(u_j),
-                                   rtol=1e-4, atol=1e-5 * float(n_j))
-        np.testing.assert_allclose(float(n_p), float(n_j), rtol=5e-3)
-
-    def test_low_edge_box_tiled_windows_match_jnp(self):
-        """bottom/left Neumann at a size where the kernels TILE rows
-        (S=512 >= TR + 2*HR): the state shifts and derived coefficient
-        planes wrap at the *window* edge, and with edge-0 unknowns the
-        wrapped values land on live cells unless masked
-        (varstencil._offdiag_apply low0 / transfer._fw_zero_wrap).
-        Full-extent windows (small S) can't catch this — the wrap lands
-        in zero padding there — which is exactly how the bug slipped past
-        interpret tests and only surfaced on the chip."""
-        import dataclasses
-        from jax.experimental.pallas import tpu as pltpu
-        from tpu_multigrid.cycles import cycle_with_norm
-
-        cfg_j = MultigridConfig(finest_level=8, coarsest_level=4,
-                                dtype=jnp.float32, use_pallas=False)
-        cfg_p = dataclasses.replace(cfg_j, use_pallas=True)
-        prob = MixedBCPoissonProblem(cfg_p, neumann=("bottom", "left"),
-                                     align=256, min_pad_level=0)
-        b = prob.rhs()
-        u0 = jnp.zeros_like(b)
-        u_j, n_j = cycle_with_norm(prob.hierarchy, cfg_j, u0, b)
-        with pltpu.force_tpu_interpret_mode():
-            u_p, n_p = cycle_with_norm(prob.hierarchy, cfg_p, u0, b)
-        np.testing.assert_allclose(np.asarray(u_p), np.asarray(u_j),
-                                   rtol=1e-4, atol=1e-5 * float(n_j))
-        np.testing.assert_allclose(float(n_p), float(n_j), rtol=5e-3)
-
-    def test_pallas_solve_converges_low_edge_neumann(self):
-        """bottom/left Neumann puts unknowns at global row/col 0, where the
-        FW-restrict rolls wrap at the array edge — the _fw_zero_wrap fix;
-        without it this solve diverges outright.  tol sits above the f32
-        residual floor (the Neumann solution scale |u| ~ 1.2 raises the
-        floor ~17x vs all-Dirichlet; the jnp path stalls at the same
-        level, measured ~5e-4 relative at level 7)."""
-        from jax.experimental.pallas import tpu as pltpu
-
-        cfg = MultigridConfig(finest_level=7, coarsest_level=4,
-                              dtype=jnp.float32, use_pallas=True)
-        prob = MixedBCPoissonProblem(cfg, neumann=("bottom", "left"),
-                                     align=256, min_pad_level=0)
-        with pltpu.force_tpu_interpret_mode():
-            res = solve_until_tol(prob.hierarchy, cfg, prob.rhs(),
-                                  tol=1e-3, max_cycles=12)
-        assert bool(res.converged), np.asarray(res.res_history)
-        assert int(res.iterations) <= 6, np.asarray(res.res_history)

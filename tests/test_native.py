@@ -1,12 +1,17 @@
-"""Native C++ host library vs scipy oracle and the matrix-free TPU ops."""
+"""Native C++ host library vs scipy oracle and the matrix-free ops."""
 
 import numpy as np
 import pytest
 
 from tpu_multigrid import native, oracle
 
-pytestmark = pytest.mark.skipif(not native.available(),
-                                reason="native library unavailable")
+
+@pytest.fixture(autouse=True)
+def _native_library():
+    # Decided per test, never at import: every xdist worker must collect
+    # the same tests.
+    if not native.available():
+        pytest.skip("native library unavailable (no g++)")
 
 
 def test_native_poisson_assembly_matches_scipy():

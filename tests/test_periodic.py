@@ -82,7 +82,7 @@ class TestSolve:
         for lvl in (5, 6):
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=3,
                                   smoother="chebyshev", nu1=3, nu2=2,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             prob = PeriodicPoissonProblem(cfg, forcing=_forcing)
             res = solve_fixed(prob.hierarchy, cfg, prob.rhs(), 8)
             h = np.asarray(res.res_history)
@@ -95,7 +95,7 @@ class TestSolve:
             n = 2 ** lvl
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=3,
                                   smoother="chebyshev", nu1=3, nu2=2,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             r = mg.solve_poisson(lvl, bc="periodic", forcing=_forcing,
                                  config=cfg, tol=1e-11, max_cycles=40)
             assert bool(r.converged)
@@ -111,7 +111,7 @@ class TestSolve:
     def test_extract_solution_appends_wrap(self):
         cfg = MultigridConfig(finest_level=4, coarsest_level=3,
                               smoother="chebyshev", nu1=3, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         r = mg.solve_poisson(4, bc="periodic", forcing=_forcing,
                              config=cfg, num_cycles=6)
         u = np.asarray(mg.extract_solution(r.u, 16))

@@ -80,7 +80,7 @@ class TestSolve:
         for lvl in (4, 5):
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=2,
                                   smoother="chebyshev", nu1=3, nu2=2,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             prob = Periodic3DPoissonProblem(cfg, forcing=_forcing)
             res = solve_fixed(prob.hierarchy, cfg, prob.rhs(), 8)
             h = np.asarray(res.res_history)
@@ -93,7 +93,7 @@ class TestSolve:
             n = 2 ** lvl
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=2,
                                   smoother="chebyshev", nu1=3, nu2=2,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             r = mg.solve_poisson3d(lvl, bc="periodic", forcing=_forcing,
                                    config=cfg, num_cycles=12)
             idx = np.arange(n) / n
@@ -108,7 +108,7 @@ class TestSolve:
     def test_extract_solution_wrap(self):
         cfg = MultigridConfig(finest_level=3, coarsest_level=2,
                               smoother="chebyshev", nu1=3, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         r = mg.solve_poisson3d(3, bc="periodic", forcing=_forcing,
                                config=cfg, num_cycles=6)
         u = np.asarray(mg.extract_solution(r.u, 8))

@@ -237,7 +237,7 @@ class TestSolve3d:
         assert float(u[8, 8, 8]) > 0
 
     def test_padded_levels(self):
-        """Per-level padding (TPU tile alignment) does not change results."""
+        """Per-level padding (shard alignment) does not change results."""
         cfg = MultigridConfig(finest_level=4, coarsest_level=2,
                               dtype=jnp.float64)
         p0 = Poisson3DProblem(cfg)
@@ -257,10 +257,10 @@ class TestBoundaryLifting3D:
 
         cfg = MultigridConfig(finest_level=3, coarsest_level=2,
                               smoother="chebyshev", nu1=3, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         ccfg = MultigridConfig(finest_level=3, coarsest_level=2,
                                smoother="rbgs", nu1=2, nu2=2,
-                               use_pallas=False, dtype=jnp.float64)
+                               dtype=jnp.float64)
         runs = [
             mg.solve_poisson3d(3, forcing=0.0, boundary=2.0, config=cfg,
                                tol=1e-11),
@@ -284,7 +284,7 @@ class TestBoundaryLifting3D:
 
         cfg = MultigridConfig(finest_level=3, coarsest_level=2,
                               smoother="chebyshev", nu1=3, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         g = lambda x, y, z: x + y + z
         r = mg.solve_poisson3d(3, forcing=0.0, boundary=g, config=cfg,
                                tol=1e-12)

@@ -74,7 +74,7 @@ class TestConvergence:
         for lvl in (5, 6):
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=3,
                                   smoother=smoother, nu1=nu[0], nu2=nu[1],
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             prob = Poisson4Problem(cfg)
             res = solve_fixed(prob.hierarchy, cfg, prob.rhs(), 8)
             h = np.asarray(res.res_history)
@@ -92,7 +92,7 @@ class TestAccuracy:
                 n = 2 ** lvl
                 cfg = MultigridConfig(finest_level=lvl, coarsest_level=3,
                                       smoother="chebyshev", nu1=3, nu2=2,
-                                      use_pallas=False, dtype=jnp.float64)
+                                      dtype=jnp.float64)
                 r = mg.solve_poisson(lvl, order=order, forcing=_forcing,
                                      config=cfg, tol=1e-13, max_cycles=40)
                 S = n + 1
@@ -112,7 +112,7 @@ class TestAccuracy:
     def test_boundary_lifting(self):
         cfg = MultigridConfig(finest_level=5, coarsest_level=3,
                               smoother="chebyshev", nu1=3, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         r = mg.solve_poisson(5, order=4, forcing=0.0, boundary=1.5,
                              config=cfg, tol=1e-12)
         u = np.asarray(r.u)[:33, :33]

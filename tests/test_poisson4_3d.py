@@ -68,7 +68,7 @@ class TestSolve:
         for lvl in (3, 4):
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=2,
                                   smoother="chebyshev", nu1=3, nu2=2,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             prob = Poisson4_3DProblem(cfg, forcing=_forcing)
             res = solve_fixed(prob.hierarchy, cfg, prob.rhs(), 8)
             h = np.asarray(res.res_history)
@@ -81,7 +81,7 @@ class TestSolve:
             n = 2 ** lvl
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=2,
                                   smoother="chebyshev", nu1=3, nu2=2,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             r = mg.solve_poisson3d(lvl, order=4, forcing=_forcing,
                                    config=cfg, num_cycles=14)
             S = n + 1

@@ -227,29 +227,6 @@ def test_cycle_ds_matches_plain_refined():
     assert abs(outs[0][0] - outs[3][0]) <= 2
 
 
-def test_compensated_residual_kernels_match_jnp():
-    """Fused ds/ts residual kernels == the jnp TwoSum expressions exactly
-    (interpret mode; they must agree bitwise — same arithmetic)."""
-    from jax.experimental.pallas import tpu as pltpu
-    from tpu_multigrid.kernels import compres
-    from tpu_multigrid.precision import ds_residual, ts_residual
-
-    rng = np.random.default_rng(3)
-    n, S = 250, 256
-    def grid(scale):
-        x = np.zeros((S, S), np.float32)
-        x[1:n, 1:n] = rng.standard_normal((n - 1, n - 1)) * scale
-        return jnp.asarray(x)
-    b, uh, um, ul = grid(1e-3), grid(1.0), grid(1e-7), grid(1e-14)
-    with pltpu.force_tpu_interpret_mode():
-        g2 = compres.ds_residual_pallas(b, uh, um, n)
-        g3 = compres.ts_residual_pallas(b, uh, um, ul, n)
-    w2 = ds_residual(b, uh, um, n)
-    w3 = ts_residual(b, uh, um, ul, n)
-    np.testing.assert_array_equal(np.asarray(g2), np.asarray(w2))
-    np.testing.assert_array_equal(np.asarray(g3), np.asarray(w3))
-
-
 def test_ts_refinement_reaches_deeper_than_ds():
     """The triple-single outer iterate must reach ~eps^3-ish floors; the
     ds floor (~eps^2*n^2*|u| relative) is the quantity it exists to beat

@@ -168,8 +168,7 @@ class TestGalerkin:
 
 class TestHierarchy:
     def test_strong_axis_first_then_equilibrate(self):
-        cfg = MultigridConfig(finest_level=6, coarsest_level=3,
-                              use_pallas=False)
+        cfg = MultigridConfig(finest_level=6, coarsest_level=3)
         prob = AnisotropicPoissonProblem(cfg, eps_x=100.0, eps_y=1.0,
                                          coarsening="semi")
         shapes = [(l.ny, l.nx) for l in prob.hierarchy.levels]
@@ -182,8 +181,7 @@ class TestHierarchy:
         assert (ny_c - 1) * (nx_c - 1) <= 49
 
     def test_isotropic_reduces_to_full_coarsening(self):
-        cfg = MultigridConfig(finest_level=5, coarsest_level=3,
-                              use_pallas=False)
+        cfg = MultigridConfig(finest_level=5, coarsest_level=3)
         prob = AnisotropicPoissonProblem(cfg, eps_x=1.0, eps_y=1.0,
                                          coarsening="semi")
         shapes = [(l.ny, l.nx) for l in prob.hierarchy.levels]
@@ -199,7 +197,7 @@ class TestConvergence:
         for lvl in (5, 6):
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=3,
                                   smoother="chebyshev", nu1=3, nu2=2,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             prob = AnisotropicPoissonProblem(cfg, eps_x=eps, eps_y=1.0,
                                              coarsening="semi")
             res = solve_fixed(prob.hierarchy, cfg, prob.rhs(), 8)
@@ -212,7 +210,7 @@ class TestConvergence:
         def rho(coarsening):
             cfg = MultigridConfig(finest_level=6, coarsest_level=3,
                                   smoother="chebyshev", nu1=3, nu2=2,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             prob = AnisotropicPoissonProblem(cfg, eps_x=100.0, eps_y=1.0,
                                              coarsening=coarsening)
             res = solve_fixed(prob.hierarchy, cfg, prob.rhs(), 8)
@@ -224,7 +222,7 @@ class TestConvergence:
     def test_y_strong_transpose(self):
         cfg = MultigridConfig(finest_level=5, coarsest_level=3,
                               smoother="chebyshev", nu1=3, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         prob = AnisotropicPoissonProblem(cfg, eps_x=1.0, eps_y=100.0,
                                          coarsening="semi")
         assert prob.hierarchy.levels[1].from_axes == ("y",)
@@ -237,7 +235,7 @@ class TestConvergence:
         with semi-coarsening."""
         cfg = MultigridConfig(finest_level=5, coarsest_level=3,
                               smoother="zebra_x", nu1=1, nu2=1,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         prob = AnisotropicPoissonProblem(cfg, eps_x=100.0, eps_y=1.0,
                                          coarsening="semi")
         res = solve_fixed(prob.hierarchy, cfg, prob.rhs(), 6)
@@ -247,7 +245,7 @@ class TestConvergence:
     def test_fmg_start(self):
         cfg = MultigridConfig(finest_level=6, coarsest_level=3,
                               smoother="chebyshev", nu1=3, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         prob = AnisotropicPoissonProblem(cfg, eps_x=100.0, eps_y=1.0,
                                          coarsening="semi")
         b = prob.rhs()
@@ -264,7 +262,7 @@ class TestAPI:
 
         cfg = MultigridConfig(finest_level=5, coarsest_level=3,
                               smoother="chebyshev", nu1=3, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         r = mg.solve_anisotropic(5, eps_x=200.0, eps_y=1.0, tol=1e-9,
                                  config=cfg)
         assert bool(r.converged) and int(r.iterations) <= 8
@@ -274,7 +272,7 @@ class TestAPI:
 
         cfg = MultigridConfig(finest_level=5, coarsest_level=3,
                               smoother="chebyshev", nu1=3, nu2=2,
-                              use_pallas=False, dtype=jnp.float64)
+                              dtype=jnp.float64)
         r = mg.solve_anisotropic(5, eps_x=100.0, eps_y=1.0, tol=1e-9,
                                  forcing=0.0, boundary=2.5, config=cfg)
         u = np.asarray(r.u)[:33, :33]
@@ -293,7 +291,7 @@ class TestAccuracy:
             n = 2 ** lvl
             cfg = MultigridConfig(finest_level=lvl, coarsest_level=3,
                                   smoother="chebyshev", nu1=3, nu2=2,
-                                  use_pallas=False, dtype=jnp.float64)
+                                  dtype=jnp.float64)
             prob = AnisotropicPoissonProblem(
                 cfg, eps_x=ex, eps_y=ey,
                 forcing=lambda x, y: (ex + ey) * math.pi ** 2

@@ -1,12 +1,12 @@
-"""tpu-multigrid: TPU-native geometric multigrid for 2D structured grids.
+"""tpu-multigrid: geometric multigrid for structured grids in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 reference SYCL/oneMKL solver ``nikhilTkur/Multigrid_Nikhil_C-`` (see
 SURVEY.md): 2D Poisson / variable-coefficient diffusion on the unit square,
 weighted-Jacobi and red-black Gauss-Seidel smoothers, V/W/F cycles and full
 multigrid, full-weighting restriction and bilinear prolongation — matrix-free
-over HBM-resident grids, with fused Pallas stencil kernels and 2D
-``shard_map`` domain decomposition.
+over device-resident grids, with fused CUDA level-visit kernels for the
+constant 2D stencil and 2D ``shard_map`` domain decomposition.
 """
 
 from .api import (extract_solution, solve_anisotropic,

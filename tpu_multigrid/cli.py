@@ -34,7 +34,8 @@ def _add_common(p):
     p.add_argument("--dtype", choices=["f32", "f64", "bf16"], default="f32")
     p.add_argument("--smooth-dtype", choices=["f32", "f64", "bf16"],
                    default=None)
-    p.add_argument("--pallas", action="store_true")
+    p.add_argument("--kernels", action="store_true",
+                   help="fused CUDA level-visit kernels (GPU only)")
     p.add_argument("--fmg", action="store_true", help="FMG initial guess")
     p.add_argument("--refined", action="store_true",
                    help="compensated double-single refinement (deep f32 tolerances)")
@@ -62,7 +63,7 @@ def _dtype(name):
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="tpu-multigrid",
-        description="TPU-native geometric multigrid solver")
+        description="geometric multigrid solver for JAX accelerators")
     sub = parser.add_subparsers(dest="command", required=True)
 
     ps = sub.add_parser("solve", help="solve -lap(u) = f (constant f=4)")
@@ -140,7 +141,7 @@ def main(argv=None):
         nu1=args.nu1, nu2=args.nu2, nu0=args.nu0, omega=args.omega,
         smoother=args.smoother, cheb_lo=args.cheb_lo, cycle=args.cycle,
         coarse_solver=args.coarse_solver, dtype=_dtype(args.dtype),
-        smooth_dtype=_dtype(args.smooth_dtype), use_pallas=args.pallas)
+        smooth_dtype=_dtype(args.smooth_dtype), use_kernels=args.kernels)
 
     t0 = time.perf_counter()
     kw = dict(config=cfg, forcing=args.forcing, tol=args.tol,

@@ -69,7 +69,9 @@ class MultigridConfig:
     prolongation: str = "bilinear"    # "bilinear" | "p1"
     dtype: Any = jnp.float32          # residual / correction / transfer dtype
     smooth_dtype: Optional[Any] = None  # e.g. jnp.bfloat16 for mixed precision
-    use_pallas: bool = False          # fused Pallas smoother/residual kernels
+    # Fused CUDA level-visit kernels for the constant 2D stencil
+    # (kernels/level2d.py); GPU only.
+    use_kernels: bool = False
     # Distributed: mesh shape (my, mx) over which the grid is domain-
     # decomposed; None = single device.
     mesh_shape: Optional[Tuple[int, int]] = None

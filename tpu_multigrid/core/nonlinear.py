@@ -297,9 +297,8 @@ class QuasilinearFluxOp3:
         self.S = int(S)
         self.a = a
         self.da = da
-        # Optional lane-axis padding (fused FAS kernels need Sx mult 128;
-        # XLA lane-pads the minor dim internally anyway, so explicit Sx
-        # costs no extra HBM — same convention as ConstStencilOp3D).
+        # Optional minor-axis padding (same convention as
+        # ConstStencilOp3D).
         self.Sx = int(Sx) if Sx is not None else int(S)
 
     def tree_flatten(self):
@@ -375,9 +374,8 @@ def inject_solution(u: jnp.ndarray, nf: int, Sc: int) -> jnp.ndarray:
 def inject_solution3(u: jnp.ndarray, nf: int, Sc) -> jnp.ndarray:
     """3D literal solution injection: coarse[i,j,k] = fine[2i,2j,2k].
 
-    Per-axis parity-reshape decimation (never a strided slice — the
-    XLA:TPU stride-2 pathology, ``ops3d`` module docstring); the lane
-    axis routes through a transpose pair like ``ops3d._blur_decimate``."""
+    Per-axis parity-reshape decimation (``ops3d`` module docstring); the
+    lane axis routes through a transpose pair like ``ops3d._blur_decimate``."""
     from . import ops3d
     nc = nf // 2
     shc = ops3d._shape3(Sc)

@@ -11,8 +11,8 @@ alignment padding held at zero.
 
 Conventions used throughout:
 
-* Arrays may be padded (``S >= n+1``) so fine grids can be tiled/sharded on
-  TPU; the *interior* (unknowns) is indices ``1..n-1`` in each axis.
+* Arrays may be padded (``S >= n+1``) so fine grids can be sharded evenly;
+  the *interior* (unknowns) is indices ``1..n-1`` in each axis.
 * Interior masks are generated inline from ``broadcasted_iota`` — they cost
   no HBM traffic, unlike a stored mask array.
 * Neighbor access uses ``jnp.roll``; wrap-around values only ever land on
@@ -185,9 +185,9 @@ def redblack_gs_sweeps(
 
     Not present in the reference (its only smoother is weighted Jacobi);
     provided per the framework's smoother registry (BASELINE config 2).  On
-    TPU the sequential dependence is resolved by checkerboard coloring: all
-    same-color updates are independent, so each half-sweep is a full
-    vectorized update under a parity mask.
+    an accelerator the sequential dependence is resolved by checkerboard
+    coloring: all same-color updates are independent, so each half-sweep
+    is a full vectorized update under a parity mask.
     """
     if sweeps <= 0:
         return u
@@ -221,10 +221,7 @@ def _blur121(x: jnp.ndarray, axis: int) -> jnp.ndarray:
 
     Pad-then-unit-stride-slice rather than roll, so out-of-range taps read
     exact zeros for ANY input (matching a zero-padded convolution) instead
-    of wrapped values.  Unit-stride offset slices lower cleanly on XLA:TPU;
-    it is stride-2 slices/scatters and 1-channel spatial convs that are
-    pathological there (measured: conv restrict 92 ms, strided scatter
-    ~400 ms per 8193^2 transfer vs ~1 ms for this formulation).
+    of wrapped values.
     """
     ax = axis if axis >= 0 else x.ndim + axis
     pad = [(0, 0)] * x.ndim
@@ -239,9 +236,8 @@ def _blur121(x: jnp.ndarray, axis: int) -> jnp.ndarray:
 
 def _even_decimate(x: jnp.ndarray, axis: int) -> jnp.ndarray:
     """Keep even indices along a trailing axis — sublane parity reshape
-    ``(..., 2m, C) -> (..., m, 2, C)[..., 0, :]``; the lane axis is
-    conjugated by a transpose pair (minor-dim reshapes to ``(..., 2)``
-    explode via T(8,128) lane padding on TPU).  Output length is
+    ``(..., 2m, C) -> (..., m, 2, C)[..., 0, :]``; the minor axis is
+    conjugated by a transpose pair.  Output length is
     ``ceil(L/2)`` — the same as a stride-2 conv with (1, 1) padding."""
     ax = axis if axis >= 0 else x.ndim + axis
     if ax == x.ndim - 1:
@@ -288,9 +284,7 @@ def restrict_fw(rf: jnp.ndarray, nf: int, Sc: int, box=None) -> jnp.ndarray:
     Fine grid ``(Sf, Sf)`` with ``nf`` cells -> coarse grid ``(Sc, Sc)`` with
     ``nf//2`` cells: the [[1,2,1],[2,4,2],[1,2,1]]/4 kernel applied at even
     fine nodes.  Separable: per-axis zero-boundary [1/2, 1, 1/2] blur then
-    even-index parity-reshape decimation (a stride-2 conv formulation
-    measured 92 ms at 8193^2 on v5e vs ~1 ms for this path — XLA:TPU is
-    pathological for 1-channel spatial convs and strided lane ops).
+    even-index parity-reshape decimation.
     Requires ``Sf >= 2*Sc - 1`` (hierarchy construction guarantees this).
     Reference: ``restriction2d`` (``Poissons_SYCL.cpp:531-546``), with its
     integer-division bug fixed and the FEM /4 scaling so that R A P equals
@@ -317,11 +311,7 @@ def prolong(ec: jnp.ndarray, nc: int, Sf: int, box=None) -> jnp.ndarray:
     89 lines of even/odd case analysis collapse to four phase averages here.
 
     Implemented as phase averages + stack/reshape interleaves (the 2D
-    analogue of ``ops3d.prolong3``): an lhs-dilated conv formulation
-    materializes a multi-GB intermediate on XLA:TPU, and strided lane
-    scatters measured ~400 ms per 8193^2 transfer there.  The Pallas
-    transfer kernels remain the hot path for the fused Poisson tier; this
-    is the everything-else tier (var/upwind/Mehrstellen/coarse levels).
+    analogue of ``ops3d.prolong3``).
 
     ``box``: optional inclusive fine unknown box (mixed-BC problems).
     """

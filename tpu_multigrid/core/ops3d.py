@@ -36,8 +36,7 @@ import jax.numpy as jnp
 
 def _shape3(S) -> tuple:
     """Cubic int or (Sz, Sy, Sx) tuple -> 3-tuple.  Grids may be padded
-    per-axis (lane dim to 128, sublane to 8 for the Pallas kernels —
-    ``kernels/stencil3d.py``); padding is zero/masked like 2D."""
+    per-axis; padding is zero/masked like 2D."""
     return (S, S, S) if isinstance(S, int) else tuple(S)
 
 
@@ -152,12 +151,10 @@ def redblack_gs_sweeps3(u, b, n: int, sweeps: int) -> jnp.ndarray:
 def _blur_decimate(t: jnp.ndarray, ax: int) -> jnp.ndarray:
     """[0.5, 1, 0.5] blur along ``ax`` then keep even indices.
 
-    Decimation is a parity reshape (``(m, 2, ...)[:, 0]``), never a strided
-    slice — XLA:TPU lowers stride-2 lane slices pathologically (the conv
-    formulation of this restriction measured 134 ms at 257^3 on v5e vs
-    ~1 ms for this path).  The lane axis routes through a transpose pair
-    like :func:`prolong3`.  Roll wrap-around only ever reads masked-zero
-    padding (inputs are masked residuals).
+    Decimation is a parity reshape (``(m, 2, ...)[:, 0]``).  The minor
+    axis routes through a transpose pair like :func:`prolong3`.  Roll
+    wrap-around only ever reads masked-zero padding (inputs are masked
+    residuals).
     """
     half = jnp.asarray(0.5, t.dtype)
     t = t + half * (jnp.roll(t, 1, ax) + jnp.roll(t, -1, ax))
@@ -245,9 +242,8 @@ def restrict_fw3(rf: jnp.ndarray, nf: int, Sc, box=None) -> jnp.ndarray:
 
 def _interleave_axis(a: jnp.ndarray, b: jnp.ndarray, axis: int):
     """out[..., 2t, ...] = a[..., t, ...], out[..., 2t+1, ...] = b: stack +
-    merge-reshape.  Cheap when ``axis`` is not the minor (lane) dimension —
-    XLA:TPU pads a trailing (..., 2) to 128 lanes (CLAUDE.md), so lane-axis
-    interleaves must transpose first (see :func:`prolong3`)."""
+    merge-reshape.  Minor-axis interleaves transpose first (see
+    :func:`prolong3`)."""
     st = jnp.stack([a, b], axis=axis + 1)
     shape = list(a.shape)
     shape[axis] *= 2
@@ -262,10 +258,7 @@ def prolong3(ec: jnp.ndarray, nc: int, Sf: int,
     neighbors along that axis (the 3D analogue of ``core.ops.prolong``).
 
     Implemented by pairwise axis interleaves (z, then y, then x through a
-    transpose) instead of strided scatters: XLA:TPU lowers ``.at[1::2]``
-    lane scatters pathologically (measured 11.5 ms for a 9 MB grid at
-    129^3, ~60x the streaming cost), while major-axis stack+reshape
-    interleaves and a transpose pair stay bandwidth-bound.
+    transpose) instead of strided scatters.
     """
     nf = 2 * nc
     shf = _shape3(Sf)

@@ -19,10 +19,9 @@ translation-invariant (the tests verify this against a dense R A P).
 
 Per-axis transfers are the variational pair ``P_a`` (linear
 interpolation) / ``R_a = P_a^T`` (weights [1/2, 1, 1/2]) built from
-TPU-safe parity reshapes (lane axis conjugated by a transpose pair;
-stride-2 slicing and 1-channel convs are pathological on XLA:TPU —
-CLAUDE.md).  Grids are rectangular ``(Sz, Sy, Sx)`` node boxes with
-independent per-axis cell counts.
+parity reshapes (minor axis conjugated by a transpose pair).  Grids are
+rectangular ``(Sz, Sy, Sx)`` node boxes with independent per-axis cell
+counts.
 
 Extension beyond the isotropic-only reference
 (``Poissons_SYCL.cpp:119-123``), completing the anisotropy-remedy matrix

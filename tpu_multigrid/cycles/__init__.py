@@ -23,8 +23,7 @@ import jax.numpy as jnp
 from ..config import MultigridConfig
 from ..core import ops
 from ..core.grids import Hierarchy, coarse_solve
-from ..core.operators import (Const9Op, ConstStencilOp, ConstStencilOp3D,
-                              VarStencilOp, VarStencilOp3D)
+from ..core.operators import ConstStencilOp
 
 
 # ---------------------------------------------------------------------------
@@ -36,7 +35,7 @@ def _sm(cfg: MultigridConfig, sweeps: int):
 
     ``"chebyshev"`` is weighted Jacobi with the degree-``sweeps`` Chebyshev
     weight schedule (core.ops.chebyshev_omegas) — every Jacobi code path
-    (jnp, Pallas, super-kernels) takes the tuple as its static ``omega``.
+    takes the tuple as its static ``omega``.
     """
     if cfg.smoother == "chebyshev":
         return "jacobi", ops.chebyshev_omegas(max(sweeps, 1), cfg.cheb_lo)
@@ -64,99 +63,15 @@ def _smooth(op, u, b, cfg: MultigridConfig, sweeps: int):
     return (u + e.astype(u.dtype)).astype(u.dtype)
 
 
-def _var_kernel_ok(op, cfg: MultigridConfig, dtype, sweeps: int) -> bool:
-    if not (cfg.use_pallas and isinstance(op, VarStencilOp)):
-        return False
-    # Nonsymmetric operators (upwind convection) stream all 9 planes
-    # (kernels/varstencil._expand_full, VERDICT r3 next #3); symmetric
-    # ones stream 5 and derive the rest in VMEM.
-    if cfg.smoother not in ("jacobi", "rbgs", "chebyshev"):
-        return False  # line smoothers run the jnp path
-    if cfg.effective_smooth_dtype != dtype:
-        return False
-    from ..kernels import varstencil as _v
-    steps = 2 * sweeps if cfg.smoother == "rbgs" else sweeps
-    return _v.supported(op.S, steps, dtype)
-
-
 def _smooth_raw(op, u, b, cfg: MultigridConfig, sweeps: int):
     smoother, omega = _sm(cfg, sweeps)
-    if cfg.use_pallas and isinstance(op, ConstStencilOp):
-        from ..kernels import stencil as _k
-        steps = 2 * sweeps if smoother == "rbgs" else sweeps
-        if _k.supported(op.S, u.dtype, steps):
-            if smoother == "jacobi":
-                return _k.jacobi_sweeps(u, b, op.n, omega, sweeps)
-            if smoother == "rbgs":
-                return _k.rbgs_sweeps(u, b, op.n, sweeps)
-    if cfg.use_pallas and isinstance(op, ConstStencilOp3D):
-        from ..kernels import stencil3d as _k3
-        steps = 2 * sweeps if smoother == "rbgs" else sweeps
-        if _k3.supported3(op.grid_shape, u.dtype, steps):
-            if smoother == "jacobi":
-                return _k3.jacobi_sweeps3(u, b, op.n, omega, sweeps)
-            if smoother == "rbgs":
-                return _k3.rbgs_sweeps3(u, b, op.n, sweeps)
-    if _var_kernel_ok(op, cfg, u.dtype, sweeps):
-        from ..kernels import varstencil as _v
-        return _v.var_smooth(u, b, _v._flat_coef(op), op.n, sweeps,
-                             smoother, omega,
-                             box=getattr(op, "box", None))
-    if (cfg.use_pallas and isinstance(op, VarStencilOp)
-            and smoother == "zebra_x" and getattr(op, "box", None) is None
-            and cfg.effective_smooth_dtype == u.dtype):
-        from ..kernels import lines as _zl
-        if _zl.supported_zebra(op.S, sweeps, u.dtype):
-            return _zl.zebra_sweeps_pallas(
-                u, b, op.coef.reshape(9, op.S, op.S), op.n, sweeps)
     return op.smooth(u, b, smoother=smoother, omega=omega, sweeps=sweeps)
 
 
-def _residual(op, u, b, cfg: MultigridConfig):
-    if cfg.use_pallas and isinstance(op, ConstStencilOp):
-        from ..kernels import stencil as _k
-        if _k.supported(op.S, u.dtype, 1):
-            return _k.residual(u, b, op.n)
-    if cfg.use_pallas and isinstance(op, ConstStencilOp3D):
-        from ..kernels import stencil3d as _k3
-        if _k3.supported3(op.grid_shape, u.dtype, 1):
-            return _k3.residual3(u, b, op.n)
-    return op.residual(u, b)
-
-
 def _smooth_residual(op, u, b, cfg: MultigridConfig, sweeps: int):
-    """Pre-smooth + residual, fused into one kernel launch when possible.
-
-    The fused Pallas kernel does k sweeps and the residual in ~4 HBM passes;
-    the reference needed 5 device ops + a sync per sweep plus a separate
-    2-gemv residual chain (``Poissons_SYCL.cpp:581,604-608``).
-    """
-    smoother, omega = _sm(cfg, sweeps)
-    if (cfg.use_pallas and isinstance(op, ConstStencilOp) and sweeps > 0
-            and cfg.effective_smooth_dtype == u.dtype):
-        from ..kernels import stencil as _k
-        steps = (2 * sweeps if smoother == "rbgs" else sweeps) + 1
-        if _k.supported(op.S, u.dtype, steps):
-            if smoother == "jacobi":
-                return _k.jacobi_sweeps_residual(u, b, op.n, omega, sweeps)
-            if smoother == "rbgs":
-                return _k.rbgs_sweeps_residual(u, b, op.n, sweeps)
-    if (cfg.use_pallas and isinstance(op, ConstStencilOp3D) and sweeps > 0
-            and cfg.effective_smooth_dtype == u.dtype):
-        from ..kernels import stencil3d as _k3
-        steps = (2 * sweeps if smoother == "rbgs" else sweeps) + 1
-        if _k3.supported3(op.grid_shape, u.dtype, steps):
-            if smoother == "jacobi":
-                return _k3.jacobi_sweeps_residual3(u, b, op.n, omega,
-                                                   sweeps)
-            if smoother == "rbgs":
-                return _k3.rbgs_sweeps_residual3(u, b, op.n, sweeps)
-    if _var_kernel_ok(op, cfg, u.dtype, sweeps):
-        from ..kernels import varstencil as _v
-        return _v.var_smooth_residual(u, b, _v._flat_coef(op), op.n, sweeps,
-                                      smoother, omega)
+    """Pre-smooth + residual."""
     u = _smooth(op, u, b, cfg, sweeps)
-    return u, _residual(op, u, b, cfg)
+    return u, op.residual(u, b)
 
 
 # ---------------------------------------------------------------------------
@@ -175,13 +90,6 @@ def _coarsest_solve(hier: Hierarchy, cfg: MultigridConfig, u, b):
     return _smooth(op, u, b, cfg, cfg.coarse_smooth_sweeps)
 
 
-def _transfer_kernels_ok(Sf, Sc, cfg: MultigridConfig, dtype) -> bool:
-    if not cfg.use_pallas:
-        return False
-    from ..kernels import transfer as _t
-    return _t.supported(Sf, Sc, 0, dtype)
-
-
 def _zeros(op, dtype):
     """Zero grid matching the operator's dimensionality (2D default)."""
     return jnp.zeros(getattr(op, "grid_shape", (op.S, op.S)), dtype)
@@ -198,9 +106,6 @@ def _restrict(r, nf, Sc, cfg: MultigridConfig, ndim: int = 2, box=None):
         return ops3d.restrict_fw3(r, nf, Sc, box=box)
     if cfg.restriction == "injection":
         return ops.restrict_injection(r, nf, Sc)
-    if _transfer_kernels_ok(r.shape[-1], Sc, cfg, r.dtype):
-        from ..kernels import transfer as _t
-        return _t.restrict_fw_pallas(r, nf, Sc, cbox=box)
     return ops.restrict_fw(r, nf, Sc, box=box)
 
 
@@ -212,260 +117,62 @@ def _prolong(e, nc, Sf, cfg: MultigridConfig, box=None):
 
 def _prolong_add(u, e, nc, Sf, cfg: MultigridConfig, ndim: int = 2,
                  box=None):
-    """u + P e, via the standalone Pallas kernel when applicable (avoids
-    XLA's strided-scatter lowering on variable-coefficient levels)."""
+    """u + P e."""
     if ndim == 3:
         from ..core import ops3d
         return u + ops3d.prolong3(e, nc, Sf, box=box)
-    if (cfg.prolongation == "bilinear"
-            and _transfer_kernels_ok(Sf, e.shape[-1], cfg, u.dtype)):
-        from ..kernels import transfer as _t
-        return _t.prolong_add_pallas(u, e, 2 * nc, box=box)
     return u + _prolong(e, nc, Sf, cfg, box=box)
 
 
-def _sdt_kernel(cfg: MultigridConfig, dtype):
-    """Static ``smooth_dtype`` arg for the const-stencil super-kernels:
-    None for uniform precision, the narrow dtype for delta-form mixed
-    precision (kernels/transfer.py::_delta_steps)."""
-    sdt = jnp.dtype(cfg.effective_smooth_dtype)
-    return None if sdt == jnp.dtype(dtype) else sdt
-
-
-def _use_super_kernels(op, opc, cfg: MultigridConfig, dtype) -> bool:
-    """Whether the fused Pallas V-cycle super-kernels apply at this level.
-
-    Covers the 5-point ``ConstStencilOp`` and (via static 9-point stencil
-    weights, zero extra HBM traffic) ``Const9Op`` Mehrstellen pairs."""
-    const9 = isinstance(op, Const9Op) and isinstance(opc, Const9Op)
-    if not (cfg.use_pallas and (isinstance(op, ConstStencilOp) or const9)):
+def _use_level_kernels(op, opc, cfg: MultigridConfig, dtype) -> bool:
+    """Whether this level visit runs the fused CUDA kernels
+    (``kernels.level2d``): the constant 5-point pair, Jacobi/Chebyshev
+    sweeps in one precision, the FW/bilinear transfer pair, f32."""
+    if not cfg.use_kernels:
         return False
-    if cfg.smoother not in ("jacobi", "rbgs", "chebyshev"):
+    if not (type(op) is ConstStencilOp and type(opc) is ConstStencilOp):
         return False
-    delta = _sdt_kernel(cfg, dtype) is not None
-    if delta and (const9 or jnp.dtype(dtype) != jnp.dtype(jnp.float32)):
-        return False  # delta form keeps an f32 iterate under narrow sweeps
-    if const9 and jnp.dtype(dtype) != jnp.dtype(jnp.float32):
+    if cfg.smoother not in ("jacobi", "chebyshev"):
+        return False
+    if jnp.dtype(cfg.effective_smooth_dtype) != jnp.dtype(dtype):
         return False
     if cfg.restriction != "fw" or cfg.prolongation != "bilinear":
         return False
-    from ..kernels import transfer as _t
-    mult = 2 if cfg.smoother == "rbgs" else 1
-    # Delta form's defect evaluation deepens the chain by one ring.
-    steps = mult * max(cfg.nu1, cfg.nu2) + (1 if delta else 0)
-    return _t.supported(op.S, opc.S, steps, dtype)
+    from ..kernels import level2d
+    return level2d.supported(cfg.nu1, cfg.nu2, dtype)
 
 
-def _fused_k1(op, opc, cfg: MultigridConfig, u, b):
-    from ..kernels import transfer as _t
-    smoother, omega = _sm(cfg, cfg.nu1)
-    return _t.smooth_restrict(u, b, op.n, opc.S, cfg.nu1, smoother, omega,
-                              smooth_dtype=_sdt_kernel(cfg, u.dtype),
-                              stencil=getattr(op, "STENCIL", None))
+def _omegas(cfg: MultigridConfig, sweeps: int) -> tuple:
+    _, omega = _sm(cfg, sweeps)
+    if isinstance(omega, tuple):
+        return tuple(omega[i % len(omega)] for i in range(sweeps))
+    return (omega,) * sweeps
 
 
-def _use_var_super_kernels(op, opc, cfg: MultigridConfig, dtype) -> bool:
-    """Whether the fused var-coefficient super-kernels (K1v/K2v) apply."""
-    if not (cfg.use_pallas and isinstance(op, VarStencilOp)):
-        return False
-    # Nonsymmetric 9-plane storage rides the same kernels (see
-    # _var_kernel_ok); no is_symmetric bail.
-    if cfg.smoother not in ("jacobi", "rbgs", "chebyshev"):
-        return False
-    if cfg.effective_smooth_dtype != dtype:
-        return False
-    if cfg.restriction != "fw" or cfg.prolongation != "bilinear":
-        return False
-    from ..kernels import vartransfer as _vt
-    mult = 2 if cfg.smoother == "rbgs" else 1
-    steps = mult * max(cfg.nu1, cfg.nu2)
-    return _vt.supported(op.S, opc.S, steps, dtype)
+def _k1(op, opc, cfg: MultigridConfig, u, b):
+    from ..kernels import level2d
+    return level2d.smooth_restrict(u, b, op.n, opc.S, _omegas(cfg, cfg.nu1))
 
 
-def _fused_k1v(op, opc, cfg: MultigridConfig, u, b):
-    from ..kernels import varstencil as _v
-    from ..kernels import vartransfer as _vt
-    smoother, omega = _sm(cfg, cfg.nu1)
-    return _vt.var_smooth_restrict_fused(u, b, _v._flat_coef(op), op.n,
-                                         opc.S, cfg.nu1, smoother, omega,
-                                         box=getattr(op, "box", None),
-                                         cbox=getattr(opc, "box", None))
+def _k2(op, cfg: MultigridConfig, u, b, ec, *, resnorm=False):
+    from ..kernels import level2d
+    return level2d.prolong_smooth(u, b, ec, op.n, _omegas(cfg, cfg.nu2),
+                                  resnorm=resnorm)
 
 
-def _fused_k2v(op, cfg: MultigridConfig, u, b, ec, *, resnorm=False):
-    from ..kernels import varstencil as _v
-    from ..kernels import vartransfer as _vt
-    smoother, omega = _sm(cfg, cfg.nu2)
-    box = getattr(op, "box", None)
-    if resnorm:
-        return _vt.var_prolong_smooth_resnorm(u, b, ec, _v._flat_coef(op),
-                                              op.n, cfg.nu2, smoother, omega,
-                                              box=box)
-    return _vt.var_prolong_smooth_fused(u, b, ec, _v._flat_coef(op),
-                                        op.n, cfg.nu2, smoother, omega,
-                                        box=box)
-
-
-def _fused_k2(op, cfg: MultigridConfig, u, b, ec, *, resnorm=False):
-    from ..kernels import transfer as _t
-    smoother, omega = _sm(cfg, cfg.nu2)
-    sd = _sdt_kernel(cfg, u.dtype)
-    st = getattr(op, "STENCIL", None)
-    if resnorm:
-        return _t.prolong_smooth_resnorm(u, b, ec, op.n, cfg.nu2,
-                                         smoother, omega, smooth_dtype=sd,
-                                         stencil=st)
-    return _t.prolong_smooth(u, b, ec, op.n, cfg.nu2, smoother, omega,
-                             smooth_dtype=sd, stencil=st)
-
-
-def _use_super_kernels3(op, opc, cfg: MultigridConfig, dtype) -> bool:
-    """Whether the fused 3D super-kernels (K1₃/K2₃) apply at this level.
-
-    Covers the 7-point ``ConstStencilOp3D`` and (via static 3x3x3 stencil
-    weights, zero extra HBM traffic) any constant compact-stencil pair
-    exposing ``STENCIL27`` — the 19-point Mehrstellen ``Const19Op`` and
-    the rotated constant-tensor ``Rotated3DOp``."""
-    const7 = (isinstance(op, ConstStencilOp3D)
-              and isinstance(opc, ConstStencilOp3D))
-    const27 = (getattr(op, "STENCIL27", None) is not None
-               and getattr(opc, "STENCIL27", None) is not None
-               and getattr(op, "ndim", 2) == 3)
-    if not (cfg.use_pallas and (const7 or const27)):
-        return False
-    if const27 and jnp.dtype(dtype) != jnp.dtype(jnp.float32):
-        return False
-    if cfg.smoother not in ("jacobi", "rbgs", "chebyshev"):
-        return False
-    if cfg.effective_smooth_dtype != dtype:
-        return False
-    if cfg.restriction != "fw" or cfg.prolongation != "bilinear":
-        return False
-    from ..kernels import transfer3d as _t3
-    mult = 2 if cfg.smoother == "rbgs" else 1
-    steps = mult * max(cfg.nu1, cfg.nu2)
-    return _t3.supported3(op.grid_shape, opc.grid_shape, steps, dtype)
-
-
-def _fused_k1_3d(op, opc, cfg: MultigridConfig, u, b):
-    from ..kernels import transfer3d as _t3
-    smoother, omega = _sm(cfg, cfg.nu1)
-    return _t3.smooth_restrict3(u, b, op.n, opc.grid_shape, cfg.nu1,
-                                smoother, omega,
-                                stencil=getattr(op, "STENCIL27", None))
-
-
-def _fused_k2_3d(op, cfg: MultigridConfig, u, b, ec, *, resnorm=False):
-    from ..kernels import transfer3d as _t3
-    smoother, omega = _sm(cfg, cfg.nu2)
-    st = getattr(op, "STENCIL27", None)
-    if resnorm:
-        return _t3.prolong_smooth_resnorm3(u, b, ec, op.n, cfg.nu2,
-                                           smoother, omega, stencil=st)
-    return _t3.prolong_smooth3(u, b, ec, op.n, cfg.nu2, smoother, omega,
-                               stencil=st)
-
-
-def _use_var_super_kernels3(op, opc, cfg: MultigridConfig, dtype) -> bool:
-    """Whether the fused 3D var-coefficient super-kernels (K1v₃/K2v₃)
-    apply at this level.  ``VarStencilOp3D`` is always flux-symmetric
-    (minus couplings are rolls of the stored planes).  Nonsymmetric
-    VARIABLE-WIND upwind pairs (``Directional7Op`` with no static
-    stencil) also qualify: they stream the six directional planes
-    (kernels/vartransfer3d._expand_dir3); constant-wind pairs carry
-    ``STENCIL27`` and ride the static-stencil kernels instead."""
-    if not cfg.use_pallas:
-        return False
-    from ..problems.convection3d import Directional7Op
-    pair_var = (isinstance(op, VarStencilOp3D)
-                and isinstance(opc, VarStencilOp3D))
-    pair_dir = (isinstance(op, Directional7Op)
-                and isinstance(opc, Directional7Op)
-                and op.STENCIL27 is None and opc.STENCIL27 is None)
-    if not (pair_var or pair_dir):
-        return False
-    box = getattr(op, "box", None)
-    if box is not None:
-        # Mixed-BC boxes ride the kernels (r4): box iota masks, edge-0
-        # minus-plane zeroing, zero-fill restriction blur — but hi-edge
-        # unknowns (box hi == n) need at least one padding plane so the
-        # wrap-reads land on zeros.
-        if op.S <= op.n + 1 or op.Sx <= op.n + 1:
-            return False
-        if opc.S <= opc.n + 1 or opc.Sx <= opc.n + 1:
-            return False
-    if cfg.smoother not in ("jacobi", "rbgs", "chebyshev"):
-        return False
-    if cfg.effective_smooth_dtype != dtype:
-        return False
-    if cfg.restriction != "fw" or cfg.prolongation != "bilinear":
-        return False
-    from ..kernels import vartransfer3d as _vt3
-    mult = 2 if cfg.smoother == "rbgs" else 1
-    steps = mult * max(cfg.nu1, cfg.nu2)
-    nplanes = 6 if pair_dir else (3 if op.c2 is None else 4)
-    return _vt3.supported_var3(op.grid_shape, opc.grid_shape, steps,
-                               dtype, nplanes)
-
-
-def _fused_k1v3(op, opc, cfg: MultigridConfig, u, b):
-    from ..kernels import vartransfer3d as _vt3
-    smoother, omega = _sm(cfg, cfg.nu1)
-    return _vt3.var_smooth_restrict3(u, b, _vt3._flat_coef3(op), op.n,
-                                     opc.grid_shape, cfg.nu1, smoother,
-                                     omega, box=getattr(op, "box", None),
-                                     cbox=getattr(opc, "box", None))
-
-
-def _fused_k2v3(op, cfg: MultigridConfig, u, b, ec, *, resnorm=False):
-    from ..kernels import vartransfer3d as _vt3
-    smoother, omega = _sm(cfg, cfg.nu2)
-    box = getattr(op, "box", None)
-    if resnorm:
-        return _vt3.var_prolong_smooth_resnorm3(u, b, ec,
-                                                _vt3._flat_coef3(op),
-                                                op.n, cfg.nu2, smoother,
-                                                omega, box=box)
-    return _vt3.var_prolong_smooth3(u, b, ec, _vt3._flat_coef3(op), op.n,
-                                    cfg.nu2, smoother, omega, box=box)
-
-
-def _use_zebra_super_kernels(op, opc, cfg: MultigridConfig, dtype) -> bool:
-    """Whether the fused zebra level-visit kernels (K1z/K2z) apply.
-
-    Same scope as the standalone fused zebra smoother (zebra_x, f32,
-    interior Dirichlet) plus the transfer-geometry gates (S mult 256,
-    coarse covers the odd-column strip)."""
-    if not (cfg.use_pallas and isinstance(op, VarStencilOp)
-            and isinstance(opc, VarStencilOp)):
-        return False
-    if cfg.smoother != "zebra_x":
-        return False
-    if getattr(op, "box", None) is not None \
-            or getattr(opc, "box", None) is not None:
-        return False
-    if cfg.effective_smooth_dtype != dtype:
-        return False
-    if cfg.restriction != "fw" or cfg.prolongation != "bilinear":
-        return False
-    from ..kernels import lines as _zl
-    return _zl.supported_zebra_fused(op.S, opc.S, max(cfg.nu1, cfg.nu2),
-                                     dtype)
-
-
-def _fused_k1z(op, opc, cfg: MultigridConfig, u, b):
-    from ..kernels import lines as _zl
-    return _zl.zebra_smooth_restrict(u, b, op.coef.reshape(9, op.S, op.S),
-                                     op.n, opc.S, cfg.nu1)
-
-
-def _fused_k2z(op, cfg: MultigridConfig, u, b, ec, *, resnorm=False):
-    from ..kernels import lines as _zl
-    coef = op.coef.reshape(9, op.S, op.S)
-    if resnorm:
-        return _zl.prolong_zebra_smooth_resnorm(u, b, ec, coef, op.n,
-                                                cfg.nu2)
-    return _zl.prolong_zebra_smooth(u, b, ec, coef, op.n, cfg.nu2)
+def _coarse_correction(hier, cfg, rc, k):
+    """Coarse-grid correction of the level-k visit: W/F-cycle recursion."""
+    opc = hier.levels[k + 1]
+    ec = _zeros(opc, rc.dtype)
+    if cfg.cycle == "V":
+        ec = cycle(hier, cfg, ec, rc, k + 1)
+    elif cfg.cycle == "W":
+        ec = cycle(hier, cfg, ec, rc, k + 1)
+        ec = cycle(hier, cfg, ec, rc, k + 1)
+    elif cfg.cycle == "F":
+        ec = cycle(hier, cfg, ec, rc, k + 1)
+        ec = _vcycle_only(hier, cfg, ec, rc, k + 1)
+    return ec
 
 
 def cycle(hier: Hierarchy, cfg: MultigridConfig, u, b, k: int = 0):
@@ -475,71 +182,34 @@ def cycle(hier: Hierarchy, cfg: MultigridConfig, u, b, k: int = 0):
     (``Poissons_SYCL.cpp:575-627``), with the level inferred statically from
     the hierarchy instead of ``log2(sqrt(size)+1)`` size-sniffing (``:583``).
 
-    On the TPU Pallas path a level visit is two fused kernels
-    (smooth+residual+restrict, then prolong+correct+smooth) — ~6.6 HBM
-    passes of the level's grid instead of ~18.5 unfused.
+    With ``cfg.use_kernels`` a constant-coefficient level visit is two
+    fused CUDA kernels (smooth+residual+restrict, then
+    prolong+correct+smooth; ``kernels.level2d``).
     """
     if k == hier.num_levels - 1:
         return _coarsest_solve(hier, cfg, u, b)
 
     op = hier.levels[k]
     opc = hier.levels[k + 1]
-    fused = _use_super_kernels(op, opc, cfg, u.dtype)
-    fusedv = (not fused) and _use_var_super_kernels(op, opc, cfg, u.dtype)
-    fused3 = (not (fused or fusedv)) and _use_super_kernels3(op, opc, cfg,
-                                                            u.dtype)
-    fusedv3 = (not (fused or fusedv or fused3)) and _use_var_super_kernels3(
-        op, opc, cfg, u.dtype)
-    fusedz = (not (fused or fusedv or fused3 or fusedv3)) \
-        and _use_zebra_super_kernels(op, opc, cfg, u.dtype)
-    if fused:
-        u, rc = _fused_k1(op, opc, cfg, u, b)
-    elif fusedv:
-        u, rc = _fused_k1v(op, opc, cfg, u, b)
-    elif fused3:
-        u, rc = _fused_k1_3d(op, opc, cfg, u, b)
-    elif fusedv3:
-        u, rc = _fused_k1v3(op, opc, cfg, u, b)
-    elif fusedz:
-        u, rc = _fused_k1z(op, opc, cfg, u, b)
+    if _use_level_kernels(op, opc, cfg, u.dtype):
+        u, rc = _k1(op, opc, cfg, u, b)
+        return _k2(op, cfg, u, b, _coarse_correction(hier, cfg, rc, k))
+    u, r = _smooth_residual(op, u, b, cfg, cfg.nu1)
+    if hasattr(opc, "restrict_into"):
+        # Operator-defined transfers (semi-coarsened SemiOp levels,
+        # periodic torus levels): the coarse op owns the pair.
+        rc = opc.restrict_into(r, op)
     else:
-        u, r = _smooth_residual(op, u, b, cfg, cfg.nu1)
-        if hasattr(opc, "restrict_into"):
-            # Operator-defined transfers (semi-coarsened SemiOp levels,
-            # periodic torus levels): the coarse op owns the pair.
-            rc = opc.restrict_into(r, op)
-        else:
-            rc = _restrict(r, op.n, _tshape(opc), cfg,
-                           getattr(op, "ndim", 2),
-                           box=getattr(opc, "box", None))
-    ec = _zeros(opc, u.dtype)
-    if cfg.cycle == "V":
-        ec = cycle(hier, cfg, ec, rc, k + 1)
-    elif cfg.cycle == "W":
-        ec = cycle(hier, cfg, ec, rc, k + 1)
-        ec = cycle(hier, cfg, ec, rc, k + 1)
-    elif cfg.cycle == "F":
-        ec = cycle(hier, cfg, ec, rc, k + 1)
-        ec = _vcycle_only(hier, cfg, ec, rc, k + 1)
-    if fused:
-        u = _fused_k2(op, cfg, u, b, ec)
-    elif fusedv:
-        u = _fused_k2v(op, cfg, u, b, ec)
-    elif fused3:
-        u = _fused_k2_3d(op, cfg, u, b, ec)
-    elif fusedv3:
-        u = _fused_k2v3(op, cfg, u, b, ec)
-    elif fusedz:
-        u = _fused_k2z(op, cfg, u, b, ec)
-    elif hasattr(opc, "prolong_add_into"):
+        rc = _restrict(r, op.n, _tshape(opc), cfg, getattr(op, "ndim", 2),
+                       box=getattr(opc, "box", None))
+    ec = _coarse_correction(hier, cfg, rc, k)
+    if hasattr(opc, "prolong_add_into"):
         u = opc.prolong_add_into(u, ec, op)
-        u = _smooth(op, u, b, cfg, cfg.nu2)
     else:
         u = _prolong_add(u, ec, opc.n, _tshape(op), cfg,
                          getattr(op, "ndim", 2),
                          box=getattr(op, "box", None))
-        u = _smooth(op, u, b, cfg, cfg.nu2)
-    return u
+    return _smooth(op, u, b, cfg, cfg.nu2)
 
 
 def _vcycle_only(hier, cfg, u, b, k):
@@ -550,51 +220,21 @@ def _vcycle_only(hier, cfg, u, b, k):
 def cycle_with_norm(hier: Hierarchy, cfg: MultigridConfig, u, b):
     """One finest-level cycle + the post-cycle residual norm.
 
-    On the Pallas path the norm is fused into the final
-    prolong+correct+smooth kernel (zero extra HBM traffic); otherwise it is
-    one residual + norm pass.  Used by the until-tol/fixed solve drivers.
+    With the fused kernels the norm comes out of the final
+    prolong+correct+smooth kernel; otherwise it is one residual + norm
+    pass.  Used by the until-tol/fixed solve drivers.
     """
     if hier.num_levels == 1:
         u = _coarsest_solve(hier, cfg, u, b)
         return u, ops.norm2(hier.levels[0].residual(u, b))
     op = hier.levels[0]
     opc = hier.levels[1]
-    fused = _use_super_kernels(op, opc, cfg, u.dtype)
-    fusedv = (not fused) and _use_var_super_kernels(op, opc, cfg, u.dtype)
-    fused3 = (not (fused or fusedv)) and _use_super_kernels3(op, opc, cfg,
-                                                            u.dtype)
-    fusedv3 = (not (fused or fusedv or fused3)) and _use_var_super_kernels3(
-        op, opc, cfg, u.dtype)
-    fusedz = (not (fused or fusedv or fused3 or fusedv3)) \
-        and _use_zebra_super_kernels(op, opc, cfg, u.dtype)
-    if fused or fusedv or fused3 or fusedv3 or fusedz:
-        if fused:
-            u, rc = _fused_k1(op, opc, cfg, u, b)
-        elif fusedv:
-            u, rc = _fused_k1v(op, opc, cfg, u, b)
-        elif fused3:
-            u, rc = _fused_k1_3d(op, opc, cfg, u, b)
-        elif fusedv3:
-            u, rc = _fused_k1v3(op, opc, cfg, u, b)
-        else:
-            u, rc = _fused_k1z(op, opc, cfg, u, b)
-        ec = _zeros(opc, u.dtype)
-        ec = cycle(hier, cfg, ec, rc, 1)
-        if cfg.cycle == "W":
-            ec = cycle(hier, cfg, ec, rc, 1)
-        elif cfg.cycle == "F":
-            ec = _vcycle_only(hier, cfg, ec, rc, 1)
-        if fused:
-            return _fused_k2(op, cfg, u, b, ec, resnorm=True)
-        if fusedv:
-            return _fused_k2v(op, cfg, u, b, ec, resnorm=True)
-        if fused3:
-            return _fused_k2_3d(op, cfg, u, b, ec, resnorm=True)
-        if fusedv3:
-            return _fused_k2v3(op, cfg, u, b, ec, resnorm=True)
-        return _fused_k2z(op, cfg, u, b, ec, resnorm=True)
+    if _use_level_kernels(op, opc, cfg, u.dtype):
+        u, rc = _k1(op, opc, cfg, u, b)
+        ec = _coarse_correction(hier, cfg, rc, 0)
+        return _k2(op, cfg, u, b, ec, resnorm=True)
     u = cycle(hier, cfg, u, b)
-    return u, ops.norm2(_residual(op, u, b, cfg))
+    return u, ops.norm2(op.residual(u, b))
 
 
 # ---------------------------------------------------------------------------
@@ -641,9 +281,7 @@ def fmg(hier: Hierarchy, cfg: MultigridConfig, b_fine,
     for _ in range(max(cfg.nu0 - 1, 0) if cfg.coarse_solver == "smooth" else 0):
         u = _coarsest_solve(hier, cfg, u, bs[kc])
     for k in range(kc - 1, -1, -1):
-        # FMG solution interpolation: route through the Pallas prolong
-        # kernel (as 0 + P u) when available — the jnp strided scatter is
-        # ~400 ms per 8193^2 level on TPU.
+        # FMG solution interpolation (as 0 + P u).
         zero = _zeros(hier.levels[k], u.dtype)
         if hasattr(hier.levels[k + 1], "prolong_add_into"):
             u = hier.levels[k + 1].prolong_add_into(zero, u,

@@ -60,83 +60,6 @@ def _nsmooth(op, u, b, cfg: MultigridConfig, sweeps: int):
     return op.nsmooth(u, b, omega=cfg.omega, sweeps=sweeps)
 
 
-def _use_fas_super_kernels(op, opc, cfg: MultigridConfig, dtype) -> bool:
-    """Whether the fused FAS super-kernels (K1f/K2f, kernels/fas.py) cover
-    this level pair: a 2D PointwiseNonlinearOp over the constant 5-point
-    stencil OR a 2D QuasilinearFluxOp, f32, 256-aligned padding — same
-    geometry gate as the linear K1/K2 (the FAS payload's deepest read
-    matches)."""
-    if not cfg.use_pallas:
-        return False
-    from ..core.nonlinear import (PointwiseNonlinearOp, QuasilinearFluxOp,
-                                  QuasilinearFluxOp3)
-    from ..core.operators import ConstStencilOp, ConstStencilOp3D
-    if getattr(op, "ndim", 2) == 3:
-        pw3 = (isinstance(op, PointwiseNonlinearOp)
-               and isinstance(opc, PointwiseNonlinearOp)
-               and isinstance(op.lin, ConstStencilOp3D)
-               and isinstance(opc.lin, ConstStencilOp3D))
-        q3 = (isinstance(op, QuasilinearFluxOp3)
-              and isinstance(opc, QuasilinearFluxOp3))
-        if not (pw3 or q3):
-            return False
-        from ..kernels.fas3d import fas3_supported
-        return fas3_supported(op.grid_shape, opc.grid_shape,
-                              max(cfg.nu1, cfg.nu2), dtype)
-    pointwise = (isinstance(op, PointwiseNonlinearOp)
-                 and isinstance(opc, PointwiseNonlinearOp)
-                 and isinstance(op.lin, ConstStencilOp)
-                 and isinstance(opc.lin, ConstStencilOp))
-    quasi = (isinstance(op, QuasilinearFluxOp)
-             and isinstance(opc, QuasilinearFluxOp))
-    if not (pointwise or quasi):
-        return False
-    from ..kernels.fas import fas_supported
-    return fas_supported(op.S, opc.S, max(cfg.nu1, cfg.nu2), dtype)
-
-
-def _fused_fas_k1(op, opc, cfg: MultigridConfig, u, b):
-    from ..core.nonlinear import QuasilinearFluxOp, QuasilinearFluxOp3
-    if getattr(op, "ndim", 2) == 3:
-        if isinstance(op, QuasilinearFluxOp3):
-            from ..kernels.fas3d import qfas_smooth_restrict3
-            return qfas_smooth_restrict3(u, b, op.n, opc.grid_shape,
-                                         cfg.nu1, float(cfg.omega), op.a)
-        from ..kernels.fas3d import fas_smooth_restrict3
-        return fas_smooth_restrict3(u, b, op.n, opc.grid_shape, cfg.nu1,
-                                    float(cfg.omega), op.phi, op.dphi,
-                                    float(op.h2), float(op.diag))
-    if isinstance(op, QuasilinearFluxOp):
-        from ..kernels.fas import qfas_smooth_restrict
-        return qfas_smooth_restrict(u, b, op.n, opc.S, cfg.nu1,
-                                    float(cfg.omega), op.a)
-    from ..kernels.fas import fas_smooth_restrict
-    return fas_smooth_restrict(u, b, op.n, opc.S, cfg.nu1,
-                               float(cfg.omega), op.phi, op.dphi,
-                               float(op.h2), float(op.diag))
-
-
-def _fused_fas_k2(op, cfg: MultigridConfig, u, b, ec):
-    from ..core.nonlinear import QuasilinearFluxOp, QuasilinearFluxOp3
-    if getattr(op, "ndim", 2) == 3:
-        if isinstance(op, QuasilinearFluxOp3):
-            from ..kernels.fas3d import qfas_prolong_smooth3
-            return qfas_prolong_smooth3(u, b, ec, op.n, cfg.nu2,
-                                        float(cfg.omega), op.a)
-        from ..kernels.fas3d import fas_prolong_smooth3
-        return fas_prolong_smooth3(u, b, ec, op.n, cfg.nu2,
-                                   float(cfg.omega), op.phi, op.dphi,
-                                   float(op.h2), float(op.diag))
-    if isinstance(op, QuasilinearFluxOp):
-        from ..kernels.fas import qfas_prolong_smooth
-        return qfas_prolong_smooth(u, b, ec, op.n, cfg.nu2,
-                                   float(cfg.omega), op.a)
-    from ..kernels.fas import fas_prolong_smooth
-    return fas_prolong_smooth(u, b, ec, op.n, cfg.nu2, float(cfg.omega),
-                              op.phi, op.dphi, float(op.h2),
-                              float(op.diag))
-
-
 def _coarsest(hier: Hierarchy, cfg: MultigridConfig, u, b):
     op = hier.levels[-1]
     if cfg.coarse_solver == "direct" and getattr(op, "a_dense", None) is not None:
@@ -151,14 +74,10 @@ def fas_cycle(hier: Hierarchy, cfg: MultigridConfig, u, b, k: int = 0):
 
     op = hier.levels[k]
     opc = hier.levels[k + 1]
-    fused = _use_fas_super_kernels(op, opc, cfg, u.dtype)
-    if fused:
-        u, uc0, bc = _fused_fas_k1(op, opc, cfg, u, b)
-    else:
-        u = _nsmooth(op, u, b, cfg, cfg.nu1)
-        r = op.residual(u, b)
-        uc0, rc = _restrict_pair(op, opc, u, r)
-        bc = opc.apply(uc0) + rc
+    u = _nsmooth(op, u, b, cfg, cfg.nu1)
+    r = op.residual(u, b)
+    uc0, rc = _restrict_pair(op, opc, u, r)
+    bc = opc.apply(uc0) + rc
 
     uc = uc0
     if cfg.cycle == "V":
@@ -170,8 +89,6 @@ def fas_cycle(hier: Hierarchy, cfg: MultigridConfig, u, b, k: int = 0):
         uc = fas_cycle(hier, cfg, uc, bc, k + 1)
         uc = _fas_vcycle_only(hier, cfg, uc, bc, k + 1)
 
-    if fused:
-        return _fused_fas_k2(op, cfg, u, b, uc - uc0)
     u = u + _prolong_err(uc - uc0, opc, op)
     return _nsmooth(op, u, b, cfg, cfg.nu2)
 
@@ -181,48 +98,13 @@ def _fas_vcycle_only(hier, cfg, u, b, k):
     return fas_cycle(hier, vcfg, u, b, k)
 
 
-def _fused_fas_k2_resnorm(op, cfg: MultigridConfig, u, b, ec):
-    from ..core.nonlinear import QuasilinearFluxOp, QuasilinearFluxOp3
-    if getattr(op, "ndim", 2) == 3:
-        if isinstance(op, QuasilinearFluxOp3):
-            from ..kernels.fas3d import qfas_prolong_smooth_resnorm3
-            return qfas_prolong_smooth_resnorm3(u, b, ec, op.n, cfg.nu2,
-                                                float(cfg.omega), op.a)
-        from ..kernels.fas3d import fas_prolong_smooth_resnorm3
-        return fas_prolong_smooth_resnorm3(u, b, ec, op.n, cfg.nu2,
-                                           float(cfg.omega), op.phi,
-                                           op.dphi, float(op.h2),
-                                           float(op.diag))
-    if isinstance(op, QuasilinearFluxOp):
-        from ..kernels.fas import qfas_prolong_smooth_resnorm
-        return qfas_prolong_smooth_resnorm(u, b, ec, op.n, cfg.nu2,
-                                           float(cfg.omega), op.a)
-    from ..kernels.fas import fas_prolong_smooth_resnorm
-    return fas_prolong_smooth_resnorm(u, b, ec, op.n, cfg.nu2,
-                                      float(cfg.omega), op.phi, op.dphi,
-                                      float(op.h2), float(op.diag))
-
-
 def fas_cycle_with_norm(hier: Hierarchy, cfg: MultigridConfig, u, b):
-    """One finest-level FAS cycle + the post-cycle nonlinear residual norm.
-
-    On the fused path the norm rides the final K2f launch (zero extra HBM
-    traffic, mirroring the linear ``cycle_with_norm``); otherwise it is one
-    jnp residual + norm pass.
-    """
+    """One finest-level FAS cycle + the post-cycle nonlinear residual norm
+    (one residual + norm pass)."""
     op = hier.levels[0]
     if hier.num_levels == 1:
         u = _coarsest(hier, cfg, u, b)
         return u, ops.norm2(op.residual(u, b))
-    opc = hier.levels[1]
-    if _use_fas_super_kernels(op, opc, cfg, u.dtype):
-        u, uc0, bc = _fused_fas_k1(op, opc, cfg, u, b)
-        uc = fas_cycle(hier, cfg, uc0, bc, 1)
-        if cfg.cycle == "W":
-            uc = fas_cycle(hier, cfg, uc, bc, 1)
-        elif cfg.cycle == "F":
-            uc = _fas_vcycle_only(hier, cfg, uc, bc, 1)
-        return _fused_fas_k2_resnorm(op, cfg, u, b, uc - uc0)
     u = fas_cycle(hier, cfg, u, b)
     return u, ops.norm2(op.residual(u, b))
 

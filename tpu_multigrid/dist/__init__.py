@@ -4,5 +4,3 @@ __all__ = ["make_grid_mesh", "grid_sharding", "place"]
 
 # Heavier distributed drivers live in submodules (imported lazily by users):
 #   dist.shard_cycle.sharded_solve        — jnp local ops, 1 halo ring/sweep
-#   dist.pallas_cycle.sharded_solve_pallas — fused kernels on ghost-extended
-#                                            blocks, 1 exchange/kernel launch

@@ -3,8 +3,8 @@
 The TPU-native replacement for a distributed backend the reference never had
 (SURVEY.md §2.3: no MPI/NCCL anywhere): each (S, S) grid is domain-decomposed
 (gy, gx) over a 2D device mesh; every operator runs on the local block and
-pulls one ghost ring from its mesh neighbors with ``jax.lax.ppermute`` over
-ICI.  Wrap-around ghosts (shard 0 receiving from shard N-1) land only on
+pulls one ghost ring from its mesh neighbors with ``jax.lax.ppermute``.
+Wrap-around ghosts (shard 0 receiving from shard N-1) land only on
 global-boundary/padding nodes, which the interior masks zero — the same
 invariant the single-device ``core.ops`` rolls rely on.
 

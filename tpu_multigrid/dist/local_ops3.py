@@ -2,10 +2,8 @@
 
 3D extension of ``dist.local_ops``: each (Sz, Sy, Sx) grid is domain-
 decomposed (gz, gy) over a 2D device mesh with the x (lane) axis kept
-shard-local — the same axis layout as the single-chip Pallas kernels
-(``kernels/stencil3d.py``), so a future multi-chip Pallas path reuses the
-local-block geometry unchanged.  Each operator pulls ghost planes (z) and
-ghost rows (y) from mesh neighbors via ``jax.lax.ppermute`` over ICI;
+shard-local.  Each operator pulls ghost planes (z) and ghost rows (y)
+from mesh neighbors via ``jax.lax.ppermute``;
 x-neighbors are local rolls whose global wrap lands on masked padding.
 Wrap-around ghosts land on global-boundary/padding nodes, zeroed by the
 interior masks — the invariant of ``core.ops3d``.

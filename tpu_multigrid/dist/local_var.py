@@ -186,9 +186,8 @@ def _to_lines(x, axis: int):
 
     ``axis=1`` (x-lines): tiled all_to_all over gx turns (r, c) local
     blocks into (r / gx, S) full-row strips; ``axis=0`` (y-lines) turns
-    them into (S, c / gy) full-column strips over gy.  The collectives
-    ride ICI — the spatial analogue of the Ulysses sequence-parallel
-    attention re-decomposition.
+    them into (S, c / gy) full-column strips over gy — the spatial
+    analogue of the Ulysses sequence-parallel attention re-decomposition.
     """
     if axis == 1:
         return lax.all_to_all(x, L.GX, split_axis=0, concat_axis=1,

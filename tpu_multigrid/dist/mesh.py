@@ -2,8 +2,9 @@
 
 The reference is single-process/single-device (one SYCL ``queue``,
 ``Poissons_SYCL.cpp:659``; no MPI/NCCL anywhere — SURVEY.md §2.3).  Scaling
-here is the TPU-native analogue: the grid is sharded (y, x) over a 2D
-``jax.sharding.Mesh``, and XLA inserts the neighbor halo exchanges over ICI.
+here is the accelerator-native analogue: the grid is sharded (y, x) over a
+2D ``jax.sharding.Mesh``, and XLA inserts the neighbor halo exchanges
+(NCCL collectives between GPUs).
 
 Two distributed code paths exist:
 
@@ -36,79 +37,16 @@ def _factor2(n: int) -> Tuple[int, int]:
 
 
 def make_grid_mesh(shape: Optional[Tuple[int, int]] = None,
-                   devices: Optional[Sequence] = None,
-                   dcn_slices: Optional[int] = None) -> Mesh:
-    """2D device mesh with axes ("gy", "gx") for spatial decomposition.
-
-    ``dcn_slices``: for multi-slice (DCN-connected) topologies, the
-    number of ICI-connected slices.  The mesh is laid out so each slice
-    owns a CONTIGUOUS band of ``gy`` rows: every halo exchange except the
-    ``dcn_slices - 1`` band-boundary row strips then rides ICI, and the
-    per-step DCN traffic is exactly one ghost-row strip per boundary —
-    the minimum a 2D decomposition admits.  (Scattering a slice's devices
-    across the mesh would instead put DCN hops inside the per-sweep
-    ppermute rings.)  Devices are grouped by their ``slice_index``
-    attribute when present (real multi-slice hardware); otherwise split
-    into ``dcn_slices`` equal consecutive chunks (virtual meshes / tests).
-    """
+                   devices: Optional[Sequence] = None) -> Mesh:
+    """2D device mesh with axes ("gy", "gx") for spatial decomposition
+    (most-square factorization of the device count by default)."""
     devs = list(devices) if devices is not None else list(jax.devices())
-    if not dcn_slices or dcn_slices <= 1:
-        if shape is None:
-            shape = _factor2(len(devs))
-        my, mx = shape
-        if my * mx != len(devs):
-            raise ValueError(f"mesh shape {shape} != {len(devs)} devices")
-        arr = np.asarray(devs).reshape(my, mx)
-        return Mesh(arr, GRID_AXES)
-
-    k = int(dcn_slices)
-    if len(devs) % k:
-        raise ValueError(f"{len(devs)} devices not divisible into "
-                         f"{k} slices")
-    per = len(devs) // k
-    slice_ids = [getattr(d, "slice_index", None) for d in devs]
-    if all(s is not None for s in slice_ids):
-        # Real multi-slice hardware: group by the device topology — and
-        # REFUSE a mismatched dcn_slices rather than silently falling
-        # back to enumeration-order chunks, which could scatter a slice
-        # across bands and put DCN hops inside the per-sweep ppermutes.
-        if len(set(slice_ids)) != k:
-            raise ValueError(
-                f"devices span {len(set(slice_ids))} slices "
-                f"(slice_index values {sorted(set(slice_ids))}) but "
-                f"dcn_slices={k}")
-        groups = [[d for d, s in zip(devs, slice_ids) if s == sid]
-                  for sid in sorted(set(slice_ids))]
-        if any(len(g) != per for g in groups):
-            raise ValueError("unequal devices per slice: "
-                             f"{[len(g) for g in groups]}")
-    else:
-        # Virtual meshes / tests: consecutive equal chunks.
-        groups = [devs[i * per: (i + 1) * per] for i in range(k)]
     if shape is None:
-        a, b = _factor2(per)
-        shape = (k * a, b)
+        shape = _factor2(len(devs))
     my, mx = shape
     if my * mx != len(devs):
         raise ValueError(f"mesh shape {shape} != {len(devs)} devices")
-    if my % k:
-        raise ValueError(f"gy extent {my} not divisible by {k} slices "
-                         "(each slice must own whole mesh rows)")
-    rows_per = my // k
-    if rows_per * mx != per:
-        raise ValueError(f"slice of {per} devices cannot fill "
-                         f"{rows_per}x{mx} mesh rows")
-    bands = [np.asarray(g).reshape(rows_per, mx) for g in groups]
-    return Mesh(np.concatenate(bands, axis=0), GRID_AXES)
-
-
-def dcn_boundary_rows(mesh: Mesh, dcn_slices: int) -> Tuple[int, ...]:
-    """The ``gy`` coordinates whose +1 neighbor lives on another slice
-    (i.e. whose downward ghost-row exchange crosses DCN) under the
-    band-contiguous layout of :func:`make_grid_mesh`."""
-    my = mesh.devices.shape[0]
-    rows_per = my // dcn_slices
-    return tuple(r * rows_per - 1 for r in range(1, dcn_slices))
+    return Mesh(np.asarray(devs).reshape(my, mx), GRID_AXES)
 
 
 def grid_sharding(mesh: Mesh) -> NamedSharding:
@@ -171,7 +109,7 @@ def gspmd_solve_hierarchy(hier, config, b, mesh: Mesh, *,
     from ..cycles import fmg, solve_fixed, solve_until_tol
 
     nd = int(b.ndim) if grid_ndim is None else int(grid_ndim)
-    cfg = _dc.replace(config, use_pallas=False)
+    cfg = _dc.replace(config, use_kernels=False)
     hier_s = jax.tree.map(lambda x: _shard_leaf(x, mesh, nd), hier)
     b_s = _shard_leaf(b, mesh, nd)
     u0_s = None if u0 is None else _shard_leaf(u0, mesh, nd)
@@ -204,12 +142,10 @@ def gspmd_fas_solve_hierarchy(hier, config, b, mesh: Mesh, *,
     (coarse[i,j] = fine[2i,2j]) is a strided gather GSPMD handles on
     sharded inputs (correctness tier — the explicit shard_map FAS path
     in ``dist.fas`` is the performance route for pointwise 2D)."""
-    import dataclasses as _dc
-
     from ..cycles.fas import fas_solve_fixed, fas_solve_until_tol
 
     nd = int(b.ndim) if grid_ndim is None else int(grid_ndim)
-    cfg = _dc.replace(config, use_pallas=False)
+    cfg = config
     hier_s = jax.tree.map(lambda x: _shard_leaf(x, mesh, nd), hier)
     b_s = _shard_leaf(b, mesh, nd)
     u0_s = None if u0 is None else _shard_leaf(u0, mesh, nd)
@@ -256,9 +192,9 @@ def gspmd_solve(config, mesh: Mesh, *, forcing=4.0, coefficient=None,
         levels, hier = levels_hier
     n0, S0 = levels.sizes[0]
     dt = jnp.dtype(config.dtype)
-    # GSPMD partitions the plain jnp operators; the Pallas kernels belong
-    # to the explicit shard_map path (dist.pallas_cycle).
-    cfg = dataclasses.replace(config, use_pallas=False)
+    # GSPMD partitions the plain jnp operators (the fused CUDA kernels
+    # are single-device).
+    cfg = dataclasses.replace(config, use_kernels=False)
     gs = grid_sharding(mesh)
     b = jax.device_put(poisson_rhs(n0, S0, forcing, dt), gs)
     u0p = None if u0 is None else jax.device_put(jnp.asarray(u0, dt), gs)

@@ -166,7 +166,6 @@ def _vcycle_periodic_local(levels: ShardedLevels, tail: Hierarchy,
         for i in range(recurse_cnt):
             sub = cfg if (cfg.cycle != "F" or i == 0) else \
                 dataclasses.replace(cfg, cycle="V")
-            sub = dataclasses.replace(sub, use_pallas=False)
             if k + 1 == len(levels.sizes) - 1:
                 ec_full = _coarsest_solve(tail, sub, ec_full, rc_full)
             else:
@@ -241,8 +240,7 @@ def periodic_sharded_solve(config: MultigridConfig, mesh: Mesh, *,
             else:
                 u_full = L.gather_full(u)
                 b_full = L.gather_full(b)
-                sub = dataclasses.replace(config, use_pallas=False)
-                u_full = cycle(tail_loc, sub, u_full, b_full)
+                u_full = cycle(tail_loc, config, u_full, b_full)
                 u = L.local_slice(u_full, u.shape)
             rnew = L.norm2_local(residual_wrap_local(u, b))
             hist = hist.at[i + 1].set(rnew)

@@ -30,8 +30,8 @@ ppermute halo machinery carries it:
   ``dist.shard_cycle.sharded_solve``'s contract).
 
 Reference anchor: the v2 library's f64 intent
-(``Multigrid_functions.cpp:19-38``) — compensated f32 is its TPU-native
-equivalent (f64 is emulated and slow on TPU).
+(``Multigrid_functions.cpp:19-38``) — compensated f32 reaches it with
+f32 storage.
 """
 
 from __future__ import annotations

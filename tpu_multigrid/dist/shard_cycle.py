@@ -173,7 +173,7 @@ def _split_hier(levels: ShardedLevels, hier: Hierarchy, mesh: Mesh):
     (coef, inv_diag) pre-placed with (…, gy, gx) sharding (coefficient
     planes are domain-decomposed alongside u/b — they must be jit ARGUMENTS
     with shardings, never closures: closed-over arrays embed as constants in
-    the remote-compile request, CLAUDE.md); ``hier_repl`` is the hierarchy
+    the compiled program); ``hier_repl`` is the hierarchy
     with sharded var slots replaced by array-free placeholders, passed
     replicated for the coarse tail.
     """
@@ -198,10 +198,10 @@ def _split_hier(levels: ShardedLevels, hier: Hierarchy, mesh: Mesh):
 def _replicated_cycle(hier: Hierarchy, cfg: MultigridConfig, k0: int, u, b):
     """Run the replicated coarse sub-cycle (plain global ops).
 
-    Pallas is disabled here: the replicated levels are tiny and run inside
-    shard_map, where the global jnp ops are the right tool.
+    The fused kernels are off here: the replicated levels are tiny and run
+    inside shard_map, where the global jnp ops are the right tool.
     """
-    cfg = dataclasses.replace(cfg, use_pallas=False)
+    cfg = dataclasses.replace(cfg, use_kernels=False)
     return cycle(hier, cfg, u, b, k=k0)
 
 

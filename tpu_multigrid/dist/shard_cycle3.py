@@ -152,7 +152,6 @@ def _split_hier3(levels: ShardedLevels3, hier: Hierarchy, mesh: Mesh):
 
 
 def _replicated_cycle3(hier, cfg, k0, u, b):
-    cfg = dataclasses.replace(cfg, use_pallas=False)
     return cycle(hier, cfg, u, b, k=k0)
 
 

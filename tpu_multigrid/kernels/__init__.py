@@ -1,1 +1,1 @@
-# Pallas TPU kernels (SURVEY.md §7 stage 3). Imported lazily by cycles.
+"""Fused CUDA kernels (GPU only); see level2d.py."""

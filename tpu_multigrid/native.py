@@ -4,7 +4,8 @@ The reference's host layer (assembly + COO->CSR + implicit SpMV via MKL
 handles) is C++; this module is its native counterpart here: the shared
 library is built on demand with g++ and loaded via ctypes (pybind11 is not
 available in this environment).  Falls back cleanly (``available() ->
-False``) when no compiler is present — the TPU compute path never needs it.
+False``) when no compiler is present — the device compute path never
+needs it.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 _SRC = pathlib.Path(__file__).resolve().parent.parent / "native" / "multigrid_host.cpp"
 _LIB_DIR = pathlib.Path(
     os.environ.get("TMG_NATIVE_CACHE",
-                   pathlib.Path.home() / ".cache" / "tpu_multigrid"))
+                   pathlib.Path(__file__).resolve().parent.parent / ".build"))
 _LIB = _LIB_DIR / "libmultigrid_host.so"
 
 _lock = threading.Lock()
@@ -33,18 +34,26 @@ _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
 def _build() -> bool:
+    """Compile the library unless an up-to-date one exists.  Concurrent
+    processes (test workers) serialize on a lock file, and the library
+    appears atomically, so none loads a half-written file."""
     if not _SRC.exists():
         return False
     _LIB_DIR.mkdir(parents=True, exist_ok=True)
-    if _LIB.exists() and _LIB.stat().st_mtime >= _SRC.stat().st_mtime:
+    import fcntl
+    with open(_LIB_DIR / "libmultigrid_host.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _LIB.exists() and _LIB.stat().st_mtime >= _SRC.stat().st_mtime:
+            return True
+        tmp = _LIB.with_suffix(f".{os.getpid()}.tmp")
+        cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
+               "-std=c++17", str(_SRC), "-o", str(tmp)]
+        try:
+            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        except (subprocess.SubprocessError, FileNotFoundError):
+            return False
+        os.replace(tmp, _LIB)
         return True
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-           str(_SRC), "-o", str(_LIB)]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return True
-    except (subprocess.SubprocessError, FileNotFoundError):
-        return False
 
 
 def _load() -> Optional[ctypes.CDLL]:

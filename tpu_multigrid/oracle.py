@@ -2,8 +2,8 @@
 
 Replicates the reference's *intended* semantics — the assembled 5-point CSR
 system of ``globalstiffenssmatrix`` (``Poissons_SYCL.cpp:200-281``, with its
-float-to-int CSR-merge truncation at ``:93`` fixed) — so the matrix-free TPU
-operators and full solves can be validated against an independent
+float-to-int CSR-merge truncation at ``:93`` fixed) — so the matrix-free
+device operators and full solves can be validated against an independent
 sparse-matrix code path (SURVEY.md §4 test pyramid, tier 3).
 """
 

@@ -3,8 +3,8 @@
 With FEM scaling (b ~ h^2, u ~ O(1)), an f32-stored iterate has an inherent
 residual-evaluation floor of ~eps_f32 * ||A|| * ||u|| — at 8193^2 that is
 ~0.5 *relative* to ||b||, so plain f32 cannot even measure convergence past
-the first cycle (CLAUDE.md), and 1e-8 relative targets are unreachable.
-f64 on TPU is emulated and slow.
+the first cycle, and 1e-8 relative targets are unreachable without a wider
+iterate.
 
 This module gets f64-like residual depth out of pure f32 storage:
 
@@ -104,8 +104,8 @@ def _ds_cascade(b, u_hi, nbr_hi, nbr_c, a_lo):
     the shard-local halo path (``dist.refine``) so both evaluate
     BITWISE-identical arithmetic.  Cascade with TwoSum: a plain sum
     rounds at eps*max|term| ~ eps^2*|diag*u| per node, which against
-    b ~ f*h^2 floors the achievable reduction at ~eps^2*n^2*|u| (the
-    5e-8 stall measured at 16385^2); the cascade leaves only
+    b ~ f*h^2 floors the achievable reduction at ~eps^2*n^2*|u| (about
+    5e-8 at 16385^2); the cascade leaves only
     eps-relative error in r itself.
     """
     # r = b + nbr_hi - diag*u_hi  (the large, cancelling terms)
@@ -189,10 +189,9 @@ def prolong_comp3(ec, nc: int, shape_f):
     """Trilinear prolongation with an exact error term: P ec == hi + err.
 
     3D analogue of :func:`prolong_comp`, built on the interleave machinery
-    (``core.ops3d.prolong3``; strided scatters are pathological on
-    XLA:TPU).  All P weights are dyadic (1, 1/2, 1/4, 1/8): the corner
-    sums are TwoSum-cascaded and the scalings are exponent shifts, so
-    ``hi + err`` equals P ec to ~eps^2.
+    (``core.ops3d.prolong3``).  All P weights are dyadic (1, 1/2, 1/4,
+    1/8): the corner sums are TwoSum-cascaded and the scalings are
+    exponent shifts, so ``hi + err`` equals P ec to ~eps^2.
     """
     from .core import ops3d
 
@@ -253,8 +252,8 @@ def cycle_ds(hier: Hierarchy, cfg: MultigridConfig, r, k: int = 0,
     Plain f32 cycles stall at 16385^2 because the correction's magnitude is
     up to ~n^2/(2 pi^2) times the defect's: (a) evaluating A(e + P e_c) for
     the post-smooth cancels catastrophically, and (b) merely *storing* the
-    prolonged correction in f32 rounds in noise above the defect scale
-    (CLAUDE.md refinement-limit note).  Here, on the finest ``ds_levels``
+    prolonged correction in f32 rounds in noise above the defect scale.
+    Here, on the finest ``ds_levels``
     levels:
 
     * pre-smoothing and the restricted defect stay plain f32 (the
@@ -287,18 +286,8 @@ def cycle_ds(hier: Hierarchy, cfg: MultigridConfig, r, k: int = 0,
     from .cycles import _tshape
     rc = _restrict(r1, op.n, _tshape(opc), cfg, ndim)
     ec_hi, ec_lo = cycle_ds(hier, cfg, rc, k + 1, ds_levels)
-    # Prolong the pair.  On TPU the jnp strided-scatter prolongation is not
-    # viable at 16385^2 (memory blowup / worker crash) — use the streamed
-    # kernels when the level qualifies.  (3D prolong_comp3 is interleave-
-    # based and TPU-viable as plain jnp.)
-    use_kernels = False
-    if cfg.use_pallas and ndim == 2:
-        from .kernels import transfer as _t
-        use_kernels = _t.supported(op.S, opc.S, 0, r.dtype)
-    if use_kernels:
-        p_hi, p_err = _t.prolong_comp_pallas(ec_hi, op.n, op.S)
-        p_lo = _t.prolong_add_pallas(p_err, ec_lo, op.n)
-    elif ndim == 3:
+    # Prolong the pair.
+    if ndim == 3:
         from .core import ops3d
         p_hi, p_err = prolong_comp3(ec_hi, opc.n, op.grid_shape)
         p_lo = ops3d.prolong3(ec_lo, opc.n, op.grid_shape) + p_err
@@ -308,7 +297,7 @@ def cycle_ds(hier: Hierarchy, cfg: MultigridConfig, r, k: int = 0,
     # accumulate: (p_hi, p_lo) + e0, exactly
     e_hi, e_lo = ds_add(p_hi, p_lo, e0)
     # post-smooth in delta form against the compensated defect
-    d0 = _ds_residual_d(r, e_hi, e_lo, op.n, cfg.use_pallas)
+    d0 = ds_residual(r, e_hi, e_lo, op.n)
     delta = _smooth(op, jnp.zeros_like(d0), d0, cfg, cfg.nu2)
     return ds_add(e_hi, e_lo, delta)
 
@@ -335,7 +324,7 @@ def ts_residual(b, u_hi, u_mid, u_lo, n):
     Why triple-single: a double-single iterate represents u to ~eps^2*|u|
     per node; through A's per-node cancellation (b ~ f*h^2 while |u| ~ 1)
     that floors the measurable relative reduction at ~eps^2*|u|*n^2/4 —
-    the 1.25e-8 stall at 8193^2 and ~5e-8 at 16385^2 measured on-chip.
+    about 1.25e-8 at 8193^2 and ~5e-8 at 16385^2.
     The third component pushes the representation floor to ~eps^3*n^2,
     far below 1e-8 at any feasible grid.  A(u_mid) needs the compensated
     neighbor sum too (u_mid is rough, |A u_mid| ~ 8*eps*|u| evaluated in
@@ -383,7 +372,7 @@ def solve_refined_ts(hier: Hierarchy, cfg: MultigridConfig, b, *,
     The outer iterate is a ts triple (representation floor ~eps^3); the
     inner correction cycle runs with double-single corrections on the
     finest ``ds_levels`` levels (:func:`cycle_ds`).  This is what lets a
-    pure-f32 TPU solve measure 1e-8 relative reductions at 16385^2, past
+    pure-f32 solve measure 1e-8 relative reductions at 16385^2, past
     both the plain-f32 floor (~0.5 relative there) and the double-single
     floor (~5e-8).
     """
@@ -419,7 +408,7 @@ def solve_refined_ts(hier: Hierarchy, cfg: MultigridConfig, b, *,
         else:
             e = cycle(hier, cfg, jnp.zeros_like(r), r)
             u_hi, u_mid, u_lo = ts_add(u_hi, u_mid, u_lo, e)
-        r = _ts_residual_d(b, u_hi, u_mid, u_lo, op.n, cfg.use_pallas)
+        r = ts_residual(b, u_hi, u_mid, u_lo, op.n)
         rnew = ops.norm2(r)
         hist = hist.at[i + 1].set(rnew)
         return u_hi, u_mid, u_lo, r, i + 1, rnew, rnorm, hist
@@ -430,25 +419,6 @@ def solve_refined_ts(hier: Hierarchy, cfg: MultigridConfig, b, *,
         (u_hi, u_mid, u_lo, r, jnp.asarray(0, jnp.int32), r0, inf, hist))
     conv = jnp.asarray(True) if fixed else rnorm <= target
     return u_hi, u_mid, u_lo, hist, iters, conv
-
-
-def _ds_residual_d(b, u_hi, u_lo, n, use_pallas):
-    """ds_residual, via the fused streaming kernel when applicable (one
-    launch, 4 HBM passes, no full-size temporaries — required at 16385^2
-    where the jnp expression's temporaries exhaust HBM)."""
-    if use_pallas and b.ndim == 2:
-        from .kernels import compres
-        if compres.supported(b.shape[-1], b.dtype):
-            return compres.ds_residual_pallas(b, u_hi, u_lo, n)
-    return ds_residual(b, u_hi, u_lo, n)
-
-
-def _ts_residual_d(b, u_hi, u_mid, u_lo, n, use_pallas):
-    if use_pallas and b.ndim == 2:
-        from .kernels import compres
-        if compres.supported(b.shape[-1], b.dtype):
-            return compres.ts_residual_pallas(b, u_hi, u_mid, u_lo, n)
-    return ts_residual(b, u_hi, u_mid, u_lo, n)
 
 
 def solve_refined(hier: Hierarchy, cfg: MultigridConfig, b, *,
@@ -488,7 +458,7 @@ def solve_refined_ds(hier: Hierarchy, cfg: MultigridConfig, b, *,
     ``ds_levels > 0`` runs the inner correction cycle with double-single
     corrections on that many finest levels (:func:`cycle_ds`) — required
     for deep tolerances at 16385^2+, where the plain-f32 inner cycle's
-    storage rounding of the correction stalls the refinement (CLAUDE.md).
+    storage rounding of the correction stalls the refinement.
 
     ``inner_dtype`` (e.g. ``jnp.bfloat16``) runs the inner correction
     cycle entirely in that storage dtype — BASELINE config 3's
@@ -512,7 +482,7 @@ def solve_refined_ds(hier: Hierarchy, cfg: MultigridConfig, b, *,
         u_hi = u0.astype(b.dtype)
         u_lo = (u0_lo.astype(b.dtype) if u0_lo is not None
                 else jnp.zeros_like(u_hi))
-        r = _ds_residual_d(b, u_hi, u_lo, op.n, cfg.use_pallas)
+        r = ds_residual(b, u_hi, u_lo, op.n)
     else:
         u_hi = jnp.zeros(getattr(op, "grid_shape", (op.S, op.S)), b.dtype)
         u_lo = jnp.zeros_like(u_hi)
@@ -561,7 +531,7 @@ def solve_refined_ds(hier: Hierarchy, cfg: MultigridConfig, b, *,
         else:
             e = cycle(hier, cfg, jnp.zeros_like(r), r)
             u_hi, u_lo = ds_add(u_hi, u_lo, e)
-        r = _ds_residual_d(b, u_hi, u_lo, op.n, cfg.use_pallas)
+        r = ds_residual(b, u_hi, u_lo, op.n)
         rnew = ops.norm2(r)
         hist = hist.at[i + 1].set(rnew)
         return u_hi, u_lo, r, i + 1, rnew, rnorm, hist

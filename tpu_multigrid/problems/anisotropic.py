@@ -66,9 +66,9 @@ def build_anisotropic_hierarchy(config: MultigridConfig, eps_x: float,
                                 min_pad_level: int = 99) -> Hierarchy:
     """Galerkin hierarchy (R A P in closed form on the host).
 
-    ``align``/``min_pad_level``: per-level padded sizes (the fused zebra
-    kernel needs S mult 128; kernels/lines.py) — padding is per-level
-    independent and the Galerkin formula carries it transparently."""
+    ``align``/``min_pad_level``: per-level padded sizes — padding is
+    per-level independent and the Galerkin formula carries it
+    transparently."""
     from ..core.operators import galerkin_coarsen_host
 
     sizes = level_sizes(config, align=align, min_pad_level=min_pad_level)
@@ -107,8 +107,7 @@ class AnisotropicPoissonProblem:
     forcing: Union[float, Callable] = 4.0
     coarsening: str = "full"
     angle: float = 0.0
-    # Level padding (only meaningful for coarsening="full"): the fused
-    # zebra kernel needs S mult 128 (kernels/lines.supported_zebra).
+    # Level padding (only meaningful for coarsening="full").
     align: int = 1
     min_pad_level: int = 99
 

@@ -77,8 +77,8 @@ class Rotated3DOp:
         self.n = int(n)
         self.S = int(S)
         self.K = tuple(float(v) for v in np.asarray(K).reshape(-1))
-        # Optional lane-axis padding for the fused static-stencil kernels
-        # (same convention as ConstStencilOp3D / Const19Op).
+        # Optional minor-axis padding (same convention as
+        # ConstStencilOp3D / Const19Op).
         self.Sx = int(Sx) if Sx is not None else int(S)
 
     def tree_flatten(self):
@@ -91,34 +91,6 @@ class Rotated3DOp:
     @property
     def grid_shape(self):
         return (self.S, self.S, self.Sx)
-
-    @property
-    def STENCIL27(self):
-        """Static 3x3x3 weights for the fused super-kernels
-        (kernels/stencil3d._off_app27): w[dz+1][dy+1][dx+1] multiplies
-        u[i+dz, j+dy, k+dx] (array axes: z, y, x <-> coords 2, 1, 0)."""
-        K = self.Kmat
-        w = [[[0.0 for _ in range(3)] for _ in range(3)] for _ in range(3)]
-        w[1][1][1] = 2.0 * float(K[0, 0] + K[1, 1] + K[2, 2])
-        for d in range(3):
-            ax = self._AX[d]           # array axis of coordinate d
-            for s in (-1, 1):
-                idx = [1, 1, 1]
-                idx[ax] += s
-                w[idx[0]][idx[1]][idx[2]] += -float(K[d, d])
-        for a in range(3):
-            for b in range(a + 1, 3):
-                kab = float(K[a, b])
-                if kab == 0.0:
-                    continue
-                axa, axb = self._AX[a], self._AX[b]
-                for sa, sb in ((1, 1), (-1, -1), (1, -1), (-1, 1)):
-                    idx = [1, 1, 1]
-                    idx[axa] += sa
-                    idx[axb] += sb
-                    sign = -1.0 if sa == sb else +1.0
-                    w[idx[0]][idx[1]][idx[2]] += sign * 0.5 * kab
-        return tuple(tuple(tuple(r) for r in p) for p in w)
 
     @property
     def Kmat(self):
@@ -208,8 +180,7 @@ def build_rotated_hierarchy3(config: MultigridConfig, K, *, align: int = 1,
                              min_pad_level: int = 99,
                              lane_align: int = 1) -> Hierarchy:
     """Re-discretized constant-tensor hierarchy (h-independent stencil).
-    Default: cubic unpadded levels (jnp tier); the fused static-stencil
-    kernels need ``align=16, min_pad_level=0, lane_align=128``."""
+    Default: cubic unpadded levels."""
     sizes = level_sizes(config, align=align, min_pad_level=min_pad_level)
     rup = lambda v, q: (v + q - 1) // q * q
     levels = tuple(

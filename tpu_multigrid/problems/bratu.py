@@ -57,11 +57,9 @@ def build_pointwise_hierarchy3(config: MultigridConfig, phi: Callable,
     """3D per-level ``PointwiseNonlinearOp`` stack over the 7-point
     constant stencil (diag 6); same coarsest Newton treatment as 2D.
 
-    Default layout: cubic (S, S, S) with S = n + 1 (the jnp FAS tier —
-    XLA lane-pads the minor dim internally either way).  The fused FAS
-    kernels (kernels/fas3d.py) need the lane-aligned (S, S, Sx) layout:
-    ``align=16, min_pad_level=0, lane_align=128`` — the same convention
-    as ``problems.poisson3d.build_poisson3d_hierarchy``."""
+    Default layout: cubic (S, S, S) with S = n + 1; ``align`` and
+    ``lane_align`` pad it like
+    ``problems.poisson3d.build_poisson3d_hierarchy``."""
     sizes = level_sizes(config, align=align, min_pad_level=min_pad_level)
     rup = lambda v, q: (v + q - 1) // q * q
     levels = []

@@ -56,55 +56,27 @@ class Directional7Op:
 
     ndim = 3
 
-    def __init__(self, cp, cm, diag, inv_diag, n: int, S: int, Sx: int,
-                 stencil27=None, coef_stack=None):
-        # Variable-wind hierarchies store ONE (6, Sz, Sy, Sx) stack
-        # [cp_z, cp_y, cp_x, cm_z, cm_y, cm_x] (streamed whole by the
-        # fused K1v₃/K2v₃ kernels, kernels/vartransfer3d.py) and expose
-        # ``cp``/``cm`` as lazy leading-axis slices — no doubled HBM
-        # footprint, no per-program restack.  Constant-wind hierarchies
-        # keep the separate-plane layout (they ride the static-stencil
-        # kernels via ``STENCIL27`` and never stream coefficients).
-        self._cp = tuple(cp) if cp is not None else None
-        self._cm = tuple(cm) if cm is not None else None
-        self.coef_stack = coef_stack
+    def __init__(self, cp, cm, diag, inv_diag, n: int, S: int, Sx: int):
+        self.cp = tuple(cp)
+        self.cm = tuple(cm)
         self.diag = diag
         self.inv_diag = inv_diag
         self.n = int(n)
         self.S = int(S)
         self.Sx = int(Sx)
-        # Constant-wind case: the upwind couplings are spatially constant
-        # per level, so the operator rides the fused static-stencil
-        # kernels (kernels/stencil3d._off_app27) — set by
-        # convection_diffusion_op3 when eps and all winds are scalars.
-        self.STENCIL27 = stencil27
-
-    @property
-    def cp(self):
-        if self._cp is not None:
-            return self._cp
-        return tuple(self.coef_stack[k] for k in range(3))
-
-    @property
-    def cm(self):
-        if self._cm is not None:
-            return self._cm
-        return tuple(self.coef_stack[k] for k in range(3, 6))
 
     @property
     def grid_shape(self):
         return (self.S, self.S, self.Sx)
 
     def tree_flatten(self):
-        return ((self._cp, self._cm, self.diag, self.inv_diag,
-                 self.coef_stack),
-                (self.n, self.S, self.Sx, self.STENCIL27))
+        return ((self.cp, self.cm, self.diag, self.inv_diag),
+                (self.n, self.S, self.Sx))
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        cp, cm, diag, inv_diag, stack = children
-        return cls(cp, cm, diag, inv_diag, *aux[:3], stencil27=aux[3],
-                   coef_stack=stack)
+        cp, cm, diag, inv_diag = children
+        return cls(cp, cm, diag, inv_diag, *aux)
 
     def _mask(self, u):
         return ops3d.mask_interior3(u, self.n)
@@ -177,22 +149,6 @@ def convection_diffusion_op3(n: int, S: int, Sx: int, eps: float,
     inter = np.zeros(shape, bool)
     inter[1:n, 1:n, 1:n] = True
     dt = np.dtype(jnp.dtype(dtype).name)
-    # Constant winds: the stencil is spatially constant per level -> the
-    # fused static-stencil kernels apply (stencil27[dz+1][dy+1][dx+1]
-    # multiplies u[i+dz, j+dy, k+dx]; A u = diag u - sum(cp u_+ + cm u_-),
-    # so the face coefficients are -cp/-cm).
-    st27 = None
-    if not any(callable(v) for v in (bx, by, bz)):
-        w = [[[0.0] * 3 for _ in range(3)] for _ in range(3)]
-        w[1][1][1] = float(diag.reshape(-1)[0])
-        for ax in range(3):          # 0 = z, 1 = y, 2 = x array axes
-            idx_p = [1, 1, 1]
-            idx_p[ax] += 1
-            idx_m = [1, 1, 1]
-            idx_m[ax] -= 1
-            w[idx_p[0]][idx_p[1]][idx_p[2]] = -float(cp[ax].reshape(-1)[0])
-            w[idx_m[0]][idx_m[1]][idx_m[2]] = -float(cm[ax].reshape(-1)[0])
-        st27 = tuple(tuple(tuple(r) for r in p) for p in w)
     # Row-mask the couplings (apply() masks output anyway; masked planes
     # keep the dense oracle comparison exact).
     cp = [np.where(inter, c, 0.0).astype(dt) for c in cp]
@@ -200,23 +156,13 @@ def convection_diffusion_op3(n: int, S: int, Sx: int, eps: float,
     diag_m = np.where(inter, diag, 0.0).astype(dt)
     inv_diag = np.zeros(shape, np.float64)
     inv_diag[inter] = 1.0 / diag[inter]
-    if st27 is None:
-        # Variable winds: single-copy (6, S, S, Sx) directional stack for
-        # the fused K1v₃/K2v₃ coefficient streaming; cp/cm become views.
-        stack = np.stack(cp + cm)
-        return Directional7Op(None, None, diag_m, inv_diag.astype(dt), n,
-                              S, Sx, coef_stack=stack)
-    return Directional7Op(cp, cm, diag_m, inv_diag.astype(dt), n, S, Sx,
-                          stencil27=st27)
+    return Directional7Op(cp, cm, diag_m, inv_diag.astype(dt), n, S, Sx)
 
 
 def build_convection3d_hierarchy(config: MultigridConfig, eps, bx, by, bz,
                                  *, align: int = 1, min_pad_level: int = 99,
                                  lane_align: int = 1) -> Hierarchy:
-    """Per-level re-discretized upwind hierarchy (M-matrix at every h).
-
-    The fused static-stencil kernels (constant winds) need
-    ``align=16, min_pad_level=0, lane_align=128``."""
+    """Per-level re-discretized upwind hierarchy (M-matrix at every h)."""
     from ..core.grids import round_up
 
     sizes = level_sizes(config, align=align, min_pad_level=min_pad_level)

@@ -12,8 +12,7 @@ i.e. the Poisson stencil with the reaction folded into the diagonal —
 each level re-discretizes with its own ``h`` (for constant ``c`` this
 equals the Galerkin product up to O(h^2) mass lumping).  The problem is
 expressed as a :class:`~tpu_multigrid.core.operators.VarStencilOp`
-hierarchy, so the whole existing machinery applies unchanged: jnp path,
-fused Pallas var-stencil smoothers and the K1v/K2v super-kernels, all
+hierarchy, so the whole existing machinery applies unchanged: all
 cycle/FMG/until-tol drivers, CG preconditioning, checkpointing.
 
 A positive shift only strengthens the diagonal (the weighted-Jacobi /
@@ -95,10 +94,6 @@ class HelmholtzProblem:
         hier = build_helmholtz_hierarchy(
             self.config, self.shift, align=self.align,
             min_pad_level=self.min_pad_level)
-        if self.config.use_pallas:
-            for op in hier.levels:
-                if hasattr(op, "with_sym_planes"):
-                    op.with_sym_planes()
         self.hierarchy: Hierarchy = jax.device_put(hier)
 
     @property

@@ -27,8 +27,6 @@ Neumann condition ``du/dn = g``:
   against manufactured solutions).
 
 At least one side must stay Dirichlet (all-Neumann Poisson is singular).
-Box operators run the jnp/XLA path; the Pallas kernels' masks are
-specialized to the default Dirichlet interior (cycles gates on ``op.box``).
 """
 
 from __future__ import annotations

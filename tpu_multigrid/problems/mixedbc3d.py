@@ -150,9 +150,8 @@ def build_mixed_hierarchy3(config: MultigridConfig,
     """Mixed-BC 3D hierarchy: the FV operator rediscretized per level
     (nested boxes — see the module docstring on Galerkin vs redisc).
 
-    ``align``/``lane_align``: padded (S, S, Sx) level sizes so the fused
-    box-masked K1v₃/K2v₃ kernels engage (align 16, lane_align 128 — the
-    diffusion3d conventions); the box indices are padding-independent.
+    ``align``/``lane_align``: padded (S, S, Sx) level sizes; the box
+    indices are padding-independent.
     """
     neumann = frozenset(neumann)
     sizes = level_sizes(config, align=align, min_pad_level=min_pad_level)

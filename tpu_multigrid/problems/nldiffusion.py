@@ -39,8 +39,7 @@ def build_quasilinear_hierarchy3(config: MultigridConfig, a: Callable,
                                  min_pad_level: int = 99,
                                  lane_align: int = 1) -> Hierarchy:
     """3D quasilinear flux stack; default cubic (S, S, S) = (n+1,)³
-    levels (jnp tier) or lane-aligned (S, S, Sx) for the fused FAS
-    kernels (see ``bratu.build_pointwise_hierarchy3``)."""
+    levels, or padded (S, S, Sx) ones."""
     sizes = level_sizes(config, align=align, min_pad_level=min_pad_level)
     rup = lambda v, q: (v + q - 1) // q * q
     levels = tuple(

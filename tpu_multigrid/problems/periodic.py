@@ -104,11 +104,9 @@ class PeriodicOp:
         raise ValueError(f"unknown smoother {smoother!r}")
 
     # -- cycle transfer protocol (the coarse op owns the pair) --
-    # Decimation/replication avoid lane-strided slicing and jnp.repeat:
-    # XLA:TPU is pathological for stride-2 lane ops (~400 ms per 8193^2
-    # transfer — CLAUDE.md), while the sublane parity reshape
-    # (R, C) -> (R//2, 2, C) and stack+reshape interleave lower cleanly;
-    # the lane axis gets the same trick conjugated by transposes.
+    # Decimation/replication use the row parity reshape
+    # (R, C) -> (R//2, 2, C) and stack+reshape interleaves; the minor axis
+    # gets the same trick conjugated by transposes.
 
     @staticmethod
     def _even_rows(x):

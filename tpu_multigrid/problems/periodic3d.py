@@ -7,9 +7,8 @@ coarsest solve is a dense pseudo-inverse whose minimal-norm solution is
 the mean-zero gauge.  Transfers are the torus variational pair per axis
 (replication + averaging rolls / separable full weighting with wrap),
 via the operator transfer protocol (``restrict_into`` /
-``prolong_add_into``), using the sublane parity reshape for decimation
-and transposes for the lane axis (lane-strided slicing is pathological
-on XLA:TPU — CLAUDE.md).
+``prolong_add_into``), using the parity reshape for decimation
+and transposes for the minor axis.
 """
 
 from __future__ import annotations

@@ -83,13 +83,7 @@ def poisson3d_rhs(n: int, S, f: Union[float, Callable] = 6.0,
 def build_poisson3d_hierarchy(config: MultigridConfig, *, align: int = 1,
                               min_pad_level: int = 0,
                               lane_align: int = 1) -> Hierarchy:
-    """3D hierarchy; ``lane_align`` pads the minor (x) axis independently.
-
-    The Pallas streaming smoothers (``kernels/stencil3d.py``) need the
-    sublane sides (z, y) 8-aligned and the lane side 128-aligned; XLA pads
-    lanes to the 128 tile internally anyway, so ``lane_align=128`` costs no
-    extra HBM over ``align=8`` cubic grids.
-    """
+    """3D hierarchy; ``lane_align`` pads the minor (x) axis independently."""
     sizes = level_sizes(config, align=align, min_pad_level=min_pad_level)
     rup = lambda v, q: (v + q - 1) // q * q
     levels = tuple(

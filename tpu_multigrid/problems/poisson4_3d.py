@@ -55,9 +55,7 @@ def mehrstellen_rhs3(n: int, grid_shape, forcing: Union[float, Callable],
 def build_mehrstellen3_hierarchy(config: MultigridConfig, *,
                                  align: int = 1, min_pad_level: int = 99,
                                  lane_align: int = 1) -> Hierarchy:
-    """Default cubic levels (jnp tier); the fused static-stencil kernels
-    (kernels/stencil3d._off_app27) need align=16, min_pad_level=0,
-    lane_align=128."""
+    """Default cubic levels; ``align``/``lane_align`` pad them."""
     sizes = level_sizes(config, align=align, min_pad_level=min_pad_level)
     rup = lambda v, q: (v + q - 1) // q * q
     levels = tuple(

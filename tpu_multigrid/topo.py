@@ -18,7 +18,7 @@ smoother is the precomputed-``D^-1`` weighted Jacobi of the reference's v2
 ``jacobirelaxation`` (``Multigrid_functions.cpp:75-96``) with the ``omega =
 4/5`` integer-division bug (``:48``) not reproduced.
 
-This path trades the structured-grid Pallas kernels' bandwidth optimality
+This path trades the structured-grid operators' bandwidth optimality
 for full generality (any nested P1 mesh, any DOF permutation); the
 structured solver remains the fast path.  Eliminated (Dirichlet) neighbors
 are represented by one trailing zero slot in every gathered vector, so no
@@ -406,6 +406,12 @@ class TopoHierarchy:
         return len(self.ops)
 
 
+def _coarse_apply(hier: TopoHierarchy, b):
+    """Dense coarse solve; HIGHEST keeps a float32 product out of TF32."""
+    return jnp.matmul(hier.coarse_inv, b.astype(hier.coarse_inv.dtype),
+                      precision=jax.lax.Precision.HIGHEST)
+
+
 def vcycle_topo(hier: TopoHierarchy, u, b, *, nu1: int = 3, nu2: int = 3,
                 omega: Union[float, Tuple[float, ...]] = 2.0 / 3.0,
                 k: int = 0, cycle: str = "V"):
@@ -413,7 +419,7 @@ def vcycle_topo(hier: TopoHierarchy, u, b, *, nu1: int = 3, nu2: int = 3,
     ``Multigrid_functions.cpp:132-173``, as one traced XLA program)."""
     op = hier.ops[k]
     if k == hier.num_levels - 1:
-        return (hier.coarse_inv @ b.astype(hier.coarse_inv.dtype)).astype(b.dtype)
+        return _coarse_apply(hier, b).astype(b.dtype)
     t = hier.transfers[k]
     u = op.jacobi(u, b, omega, nu1)
     rc = t.restrict(op.residual(u, b))
@@ -436,7 +442,7 @@ def fmg_topo(hier: TopoHierarchy, *, nu0: int = 3, nu1: int = 3,
         raise ValueError("fmg_topo requires hier.b_levels (v2 b_dict)")
     kc = hier.num_levels - 1
     bs = [b.astype(dtype) for b in hier.b_levels]
-    u = (hier.coarse_inv @ bs[kc].astype(hier.coarse_inv.dtype)).astype(dtype)
+    u = _coarse_apply(hier, bs[kc]).astype(dtype)
     for k in range(kc - 1, -1, -1):
         u = hier.transfers[k].prolong(u)
         for _ in range(nu0):
@@ -462,8 +468,8 @@ def solve_topo(hier: TopoHierarchy, b, *, num_cycles: int = 20,
     ``build_structured_topo_hierarchy_sparse`` (which records its
     structure on the object), route through :func:`solve_permuted` —
     the numbering is factored out once per solve and the cycles run the
-    structured path (measured 4200x over the ELL gathers at 1025² on
-    chip, BENCH.md r5).  Falls back to the general tier when no
+    structured path (whether it still beats the ELL gathers on the GPU is
+    unmeasured, ROADMAP).  Falls back to the general tier when no
     structure metadata is present (e.g. after ``jax.device_put``, whose
     pytree round-trip drops plain attributes) or when ``u0``/``use_fmg``
     /``mesh`` ask for general-tier semantics."""
@@ -512,19 +518,17 @@ def solve_topo(hier: TopoHierarchy, b, *, num_cycles: int = 20,
 def solve_permuted(finest_level: int, b, perm: Optional[np.ndarray] = None,
                    *, coarsest_level: int = 5, num_cycles: int = 20,
                    config=None):
-    """TPU-first route for permuted-structured topologies.
+    """Structured route for permuted-structured topologies.
 
     The v2 ``ProblemVar`` metadata (``Multigrid_functions.cpp:98-130``)
     records, for every DOF, *where it sits on the grid* — so whenever a
     topology is a renumbered structured grid the numbering is known and
-    invertible.  The general ELL tier pays the XLA:TPU gather pathology
-    on EVERY stencil application (measured r5, benchmarks/bench_topo.py:
-    376 ms/V-cycle at 1025² permuted vs 0.090 ms structured — 4200x, and
-    a 1525 s remote compile).  This route instead factors the operator as
+    invertible.  The general ELL tier pays a gather on EVERY stencil
+    application.  This route instead factors the operator as
     ``A_topo = P A Pᵀ`` and pays the permutation exactly twice per solve:
     ``b_struct = Pᵀ b`` at entry and ``u_topo = P u`` at exit — two O(m)
     gathers amortized over the whole solve, with every cycle in between
-    on the structured (fused-Pallas) path.
+    on the structured path.
 
     ``b`` is a space vector in the *topo* numbering (``b[perm[k]]`` is
     the RHS of row-major interior node ``k``); ``perm=None`` means
@@ -543,8 +547,7 @@ def solve_permuted(finest_level: int, b, perm: Optional[np.ndarray] = None,
     cfg = config or MultigridConfig(
         finest_level=finest_level, coarsest_level=coarsest_level,
         smoother="jacobi", nu1=3, nu2=3, dtype=b.dtype)
-    pad = dict(align=256, min_pad_level=0) if cfg.use_pallas else {}
-    prob = PoissonProblem(cfg, **pad)
+    prob = PoissonProblem(cfg)
     hier = prob.hierarchy
     op0 = hier.levels[0]
     S = getattr(op0, "grid_shape", (op0.S, op0.S))
